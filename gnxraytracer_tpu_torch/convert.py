@@ -1,0 +1,89 @@
+"""State carried across from the JAX package.
+
+Each function takes a JAX-package table whose leaves were already turned
+into numpy arrays (``jax.tree.map(np.asarray, scene)`` on the caller's
+side; this module imports no jax) and returns the port's table on a device,
+so that both packages run on identical state.  Tables are matched by field
+name.
+"""
+
+import numpy as np
+import torch
+
+from .models.integrators.path import RenderCfg
+from .ops.samplers import Sampler
+from .scene.camera import Camera
+from .scene.scene import Geometry, LightTable, MaterialTable, Scene
+from .utils.device import resolve_device
+
+
+def _tensor(a, dev):
+    if a is None:
+        return None
+    a = np.array(a, order="C")  # a writable copy; keeps 0-d arrays 0-d
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(a).to(dev)
+
+
+def _table(cls, src, dev):
+    return cls(**{f: _tensor(getattr(src, f), dev) for f in cls._fields})
+
+
+def scene_from_numpy(tree, device="cuda"):
+    """JAX-package Scene (numpy leaves) -> the port's Scene."""
+    dev = resolve_device(device)
+    for field in ("env", "textures", "media", "bvh", "light_dist", "instanced",
+                  "big_tri_idx"):
+        if getattr(tree, field, None) is not None:
+            raise NotImplementedError(
+                f"scene.{field} is not ported yet and cannot be carried across")
+    return Scene(
+        geom=_table(Geometry, tree.geom, dev),
+        materials=_table(MaterialTable, tree.materials, dev),
+        lights=_table(LightTable, tree.lights, dev),
+        env=None, textures=None, media=None,
+        camera_medium=int(tree.camera_medium),
+        world_center=_tensor(tree.world_center, dev),
+        world_radius=_tensor(tree.world_radius, dev),
+        bvh=None,
+        light_pmf=_tensor(tree.light_pmf, dev),
+    )
+
+
+def camera_from_numpy(cam, device="cuda"):
+    """JAX-package Camera (numpy leaves) -> the port's Camera."""
+    dev = resolve_device(device)
+    return Camera(
+        kind=int(cam.kind),
+        raster_to_camera=_tensor(cam.raster_to_camera, dev),
+        camera_to_world=_tensor(cam.camera_to_world, dev),
+        lens_radius=float(cam.lens_radius),
+        focal_distance=float(cam.focal_distance),
+        shutter_open=float(cam.shutter_open),
+        shutter_close=float(cam.shutter_close),
+        width=int(cam.width), height=int(cam.height),
+    )
+
+
+def sampler_from_numpy(smp, device="cuda"):
+    """JAX-package Sampler -> the port's Sampler (random and sobol kinds)."""
+    dev = resolve_device(device)
+    if smp.kind not in ("random", "sobol"):
+        raise NotImplementedError(
+            f"sampler kind {smp.kind!r} is not ported yet")
+    return Sampler(kind=smp.kind, spp=int(smp.spp), seed=int(smp.seed),
+                   device=str(dev))
+
+
+def cfg_from_dict(d):
+    """``jax_cfg._asdict()`` -> the port's RenderCfg (same field names)."""
+    d = dict(d)
+    unknown = set(d) - set(RenderCfg._fields)
+    if unknown:
+        raise ValueError(f"unknown RenderCfg fields: {sorted(unknown)}")
+    for k in ("mat_kinds", "light_kinds", "light_kind_seq", "compact_stages"):
+        if k in d:
+            d[k] = tuple(tuple(x) if isinstance(x, (list, tuple)) else x
+                         for x in d[k])
+    return RenderCfg(**d)

@@ -1,0 +1,573 @@
+"""Wavefront path integrator.
+
+The recursive per-pixel Li() of a CPU path tracer becomes a bounce loop over
+a dense SoA ray wavefront: every lane is one (pixel, sample) path and dead
+lanes are masked.  Ported: the folded-MIS estimator (``fast_mis=True``), in
+which the extension ray doubles as the BSDF-side MIS sample of next-event
+estimation — two scene casts per bounce:
+
+  * emission found by the extension ray, weighted by the power heuristic
+    against the previous bounce's BSDF pdf (weight 1 at bounce 0 or after a
+    specular bounce)
+  * NEE with the light-sample strategy, one shadow cast
+  * beta *= f |cos| / pdf extension step, etaScale tracking
+  * Russian roulette: q = max(.05, 1 - maxComp(beta*etaScale)) when
+    maxComp < rrThreshold and bounces > 3
+
+The faithful three-cast estimator (``fast_mis=False``) and the software-
+pipelined loop (``pipeline_casts=True``) are not ported yet and raise.
+
+Sample-dimension layout per lane (stateless sampler, ops/samplers.py):
+dims 0-4 camera; per bounce b, base = 5 + 8b:
+  +0 light select, +1..2 uLight, +3..4 unused here, +5..6 BSDF extension
+  sample, +7 RR; one further dim per compaction stage at the end.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ...constants import INFINITY
+from ...ops import samplers, trace
+from ...ops.sampling import power_heuristic
+from ...scene import camera as cam_mod
+from ...scene.scene import MAT_GLASS, MAT_MATTE, MAT_MIRROR
+from ...utils.math import absdot, cross, dot
+from .. import lights as lights_mod
+from .. import materials as mat_mod
+
+DIMS_PER_BOUNCE = 8
+CAMERA_DIMS = 5
+
+_PORTED_MAT_KINDS = (MAT_MATTE, MAT_MIRROR, MAT_GLASS)
+
+
+class RenderCfg(NamedTuple):
+    """Static (hashable) render configuration.  Every field name and default
+    is the JAX package's RenderCfg, so a config carries across by
+    ``_asdict()``; fields that only steer unported branches are kept and
+    refused where they would be used."""
+    width: int
+    height: int
+    spp: int
+    max_depth: int = 5
+    rr_threshold: float = 1.0
+    mat_kinds: tuple = ()
+    light_kinds: tuple = ()
+    # per-light kind sequence (index -> kind)
+    light_kind_seq: tuple = ()
+    n_tris: int = 0
+    n_sphs: int = 0
+    n_big: int = 0
+    n_lights: int = 0
+    use_bvh: bool = False
+    bvh_stackless: bool = True
+    bvh_mode: str = "packet"
+    sort_key: str = "oct_morton"
+    reference_area_bug: bool = True
+    spp_chunk: int = 4
+    light_strategy: str = "uniform"  # uniform | power
+    has_media: bool = False
+    has_textures: bool = False
+    # the brute-force cast goes through the hand-written kernel
+    # (kernels/closest_hit.py); the name is the JAX package's
+    use_pallas: bool = False
+    fast_mis: bool = False    # single-extension-ray MIS (2 casts/bounce vs 3)
+    # Tail compaction: after bounce `compact_from`, survivors are compacted
+    # into a buffer n//compact_frac wide and the remaining bounces run at
+    # that width.  Unbiased: an extra Russian-roulette pass (see _prethin_p)
+    # keeps the fixed buffer from overflowing; when the survivors already
+    # fit, p == 1 and the result equals the uncompacted loop's.
+    compact_tail: bool = False
+    compact_from: int = 5     # first compacted bounce (> 4 so RR has run)
+    compact_frac: int = 8     # tail buffer width = n // compact_frac
+    # multi-stage compaction: ((bounce, frac), ...); overrides
+    # compact_from/compact_frac when non-empty
+    compact_stages: tuple = ()
+    pipeline_casts: bool = False
+    has_bump: bool = False
+    pixel_filter: str = "box"  # box | gaussian (filter importance sampling)
+    filter_radius: float = 2.0
+    filter_alpha: float = 2.0
+    # Count useful scene casts (lanes actually tracing, not dispatch width):
+    # trace_paths* then return (L, n_rays) and render_chunk (img, n_rays).
+    count_rays: bool = False
+    n_inst: int = 0
+    n_inst_tris: int = 0
+    tr_walk_segments: int = 0
+    vol_null_extra: int = 3
+    whitted_faithful: bool = False
+    texture_filter: str = "ewa"
+
+    # -- derived static predicates ------------------------------------------
+    @property
+    def has_point_like(self):
+        return 0 in self.light_kinds or 1 in self.light_kinds
+
+    @property
+    def has_spot(self):
+        return 1 in self.light_kinds
+
+    @property
+    def has_distant(self):
+        return 2 in self.light_kinds
+
+    @property
+    def has_area(self):
+        return 3 in self.light_kinds
+
+    @property
+    def has_env(self):
+        return 4 in self.light_kinds
+
+    @property
+    def has_skybox(self):
+        return 5 in self.light_kinds
+
+
+def make_config(scene, width, height, spp, **kw):
+    """Derive the static kind sets from a built scene (host-side)."""
+    # mat_kinds from materials actually REFERENCED by geometry, not every
+    # table row: the reference scene registers a mirror it never assigns
+    kinds_tab = scene.materials.kind.cpu().numpy()
+    used = np.concatenate([scene.geom.tri_mat.cpu().numpy(),
+                           scene.geom.sph_mat.cpu().numpy()])
+    used = used[used >= 0]
+    if used.size:
+        mat_kinds = tuple(sorted(set(kinds_tab[used].tolist())))
+    else:
+        mat_kinds = tuple(sorted(set(kinds_tab.tolist())))
+    unported = [k for k in mat_kinds if k not in _PORTED_MAT_KINDS]
+    if unported:
+        raise NotImplementedError(
+            f"material kinds {unported} (metal / plastic / Disney "
+            "microfacet models) are not ported yet")
+    if MAT_GLASS in mat_kinds:
+        m = scene.materials
+        rough = ((m.kind == MAT_GLASS) & ((m.rough_u > 0) | (m.rough_v > 0)))
+        if bool(rough.any()):
+            raise NotImplementedError("rough (microfacet) glass is not "
+                                      "ported yet")
+    light_seq = tuple(scene.lights.kind.cpu().numpy().tolist())
+    kw.setdefault("use_bvh", False)
+    return RenderCfg(
+        width=width, height=height, spp=spp,
+        mat_kinds=mat_kinds, light_kinds=tuple(sorted(set(light_seq))),
+        light_kind_seq=light_seq,
+        n_tris=int(scene.geom.triangles.shape[0]),
+        n_sphs=int(scene.geom.sph_center.shape[0]),
+        n_big=0,
+        n_lights=int(scene.lights.kind.shape[0]),
+        has_media=False, has_textures=False, has_bump=False,
+        n_inst=0, n_inst_tris=0,
+        **kw,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Light selection
+# ---------------------------------------------------------------------------
+
+def _choose_light(scene, cfg, u, p=None):
+    """Light selection by the configured strategy:
+      uniform — 1/nLights
+      power   — proportional to each light's power
+    Returns (index (N,) int32, selection pdf (N,))."""
+    nl = cfg.n_lights
+    if cfg.light_strategy == "spatial":
+        raise NotImplementedError("the spatial light distribution is not "
+                                  "ported yet")
+    if cfg.light_strategy == "power":
+        pmf = _power_pmf(scene, nl)
+        cdf = torch.cat([torch.zeros((1,), device=pmf.device),
+                         torch.cumsum(pmf, dim=0)])
+        idx = torch.clamp(
+            torch.sum((cdf <= u[:, None]).to(torch.int32), dim=1) - 1,
+            0, nl - 1)
+        return idx.to(torch.int32), pmf[idx.long()]
+    idx = torch.clamp((u * nl).to(torch.int32), max=nl - 1)
+    pdf = torch.full(u.shape, 1.0 / nl, dtype=torch.float32, device=u.device)
+    return idx, pdf
+
+
+def _power_pmf(scene, nl):
+    """Power-strategy pmf: precomputed at scene build (scene.light_pmf);
+    recomputed for hand-constructed Scene values."""
+    if scene.light_pmf is not None:
+        return scene.light_pmf
+    from ...scene.scene import with_light_pmf
+
+    return with_light_pmf(scene).light_pmf
+
+
+# ---------------------------------------------------------------------------
+# Faithful estimator: not ported
+# ---------------------------------------------------------------------------
+
+def estimate_direct(*a, **kw):
+    raise NotImplementedError(
+        "the faithful three-cast EstimateDirect is not ported yet; use "
+        "fast_mis=True")
+
+
+def trace_paths(scene, cfg, sampler, pixel, sample, o, d, rd=None):
+    raise NotImplementedError(
+        "the faithful three-cast estimator (fast_mis=False) is not ported "
+        "yet; use fast_mis=True (CLI: --sampler sobol --fast-mis)")
+
+
+# ---------------------------------------------------------------------------
+# Fast-MIS variant: one extension + one shadow cast per bounce
+# ---------------------------------------------------------------------------
+
+def _count(mask):
+    return torch.sum(mask.to(torch.float32))
+
+
+def _fast_parts(scene, cfg: RenderCfg, get_ub, n, rd=None):
+    """The fast-MIS bounce body split into its three phases:
+
+      cast(state)          -> Hit          (closest-hit cast)
+      emit(b, state, hit)  -> (N,3) L add  (emission/escape with MIS)
+      work(b, state, hit)  -> state'       (interaction + NEE + extension
+                                            sample + RR)
+
+    _make_fast_bounce composes them into the per-bounce body."""
+
+    def cast(state):
+        # dead lanes cast with t_max = 0 and can hit nothing
+        return trace.scene_intersect(
+            scene, cfg, state["o"], state["d"],
+            torch.where(state["alive"], INFINITY, 0.0))
+
+    def emit(b, state, hit, it=None):
+        """Emission/escape contribution of the vertex `hit` (MIS-weighted
+        against the previous bounce's BSDF pdf)."""
+        m = hit.t.shape[0]
+        L = torch.zeros((m, 3), dtype=torch.float32, device=hit.t.device)
+
+        if cfg.has_area:
+            if it is not None:
+                light_id, ng = it.light, it.ng
+            else:
+                light_id, ng = trace.tri_light_and_ng(scene, cfg, hit)
+            is_emitter = hit.hit & (hit.kind == trace.PRIM_TRI) & (light_id >= 0)
+            lidx = torch.clamp(light_id, min=0)
+            le = lights_mod.area_light_emitted(scene, lidx, ng, -state["d"],
+                                               cfg.reference_area_bug)
+            # pdf of having sampled this emission point via NEE from prev_p
+            lrow = lights_mod.light_rows(scene, lidx)
+            cr = cross(lrow.p1 - lrow.p0, lrow.p2 - lrow.p0)
+            area = 0.5 * torch.sqrt(torch.clamp(torch.sum(cr * cr, -1), min=1e-20))
+            nl_ = cr / torch.clamp(2.0 * area, min=1e-12)[..., None]
+            dist2 = torch.clamp(hit.t * hit.t, min=1e-12)
+            cos_l = torch.abs(dot(nl_, -state["d"]))
+            pdf_area = dist2 / torch.clamp(cos_l * area, min=1e-12)
+            # no light-select pmf here: per-light MIS family (selection is
+            # unbiased by the NEE /selectPdf division)
+            w = torch.where(
+                state["specular"], 1.0,
+                power_heuristic(1.0, state["prev_pdf"], 1.0, pdf_area))
+            L = L + torch.where((state["alive"] & is_emitter)[..., None],
+                                state["beta"] * le * w[..., None], 0.0)
+        if cfg.has_env:
+            raise NotImplementedError(
+                "the environment-map light (kind 4) is not ported yet")
+        if cfg.has_skybox:
+            # the skybox's light-sampling pdf is 0, so the BSDF-side sample
+            # is dropped: it reaches the image only through the
+            # bounce-0/specular escape path (weight 0 on non-specular escapes)
+            esc = state["alive"] & ~hit.hit
+            le_inf = lights_mod.escaped_radiance(scene, cfg,
+                                                 state["o"], state["d"])
+            w = torch.where(state["specular"], 1.0, 0.0)
+            L = L + torch.where(esc[..., None],
+                                state["beta"] * le_inf * w[..., None], 0.0)
+        return L
+
+    def work(b, state, hit, it=None, count_cast=True):
+        if it is None:
+            it = trace.make_interaction(scene, cfg, state["o"], state["d"],
+                                        hit)
+        ub = get_ub(b)
+        L = state["L"]
+        alive = state["alive"] & hit.hit & (b < cfg.max_depth)
+
+        # ---- NEE: light-sample strategy only -------------------------------
+        wo_local = trace.to_local(it, it.wo)
+        mats_row = mat_mod.gather_material_table(scene.materials,
+                                                 torch.clamp(it.mat, min=0))
+        has_ns = mat_mod.has_nonspecular(mats_row, None, cfg)
+        u_sel = ub[:, 0]
+        u_light = ub[:, 1:3]
+        light_idx, light_pdf_sel = _choose_light(scene, cfg, u_sel, it.p)
+        ls = lights_mod.sample_li(scene, cfg, light_idx, it.p, u_light)
+        wi_local = trace.to_local(it, ls.wi)
+        f_l, scat_pdf = mat_mod.evaluate(mats_row, None, cfg, wo_local,
+                                         wi_local)
+        f_l = f_l * absdot(ls.wi, it.ns)[..., None]
+        can = ((ls.pdf > 0) & torch.any(ls.li > 0, -1)
+               & torch.any(f_l > 0, -1))
+        so, sd, st = trace.shadow_ray(it, ls.target, ls.is_infinite)
+        # shadow cast only where the NEE sample can contribute
+        occ = trace.scene_occluded(scene, cfg, so, sd,
+                                   torch.where(alive & has_ns & can, st, 0.0))
+        w_l = torch.where(ls.is_delta, 1.0,
+                          power_heuristic(1.0, ls.pdf, 1.0, scat_pdf))
+        ld = f_l * ls.li * (w_l / torch.clamp(ls.pdf, min=1e-12))[..., None]
+        nee_ok = alive & has_ns & can & ~occ
+        L = L + torch.where(
+            nee_ok[..., None],
+            state["beta"] * ld / torch.clamp(light_pdf_sel, min=1e-12)[..., None],
+            0.0)
+
+        # ---- extension ------------------------------------------------------
+        u_bsdf = ub[:, 5:7]
+        smp = mat_mod.sample(mats_row, None, cfg, wo_local, u_bsdf,
+                             u_bsdf[..., 0])
+        beta = state["beta"] * smp.weight
+        alive = alive & smp.valid & torch.any(beta > 0, dim=-1)
+        entering = dot(it.wo, it.ng) > 0
+        eta2 = smp.eta * smp.eta
+        es_up = torch.where(entering, eta2, 1.0 / torch.clamp(eta2, min=1e-12))
+        eta_scale = torch.where(smp.specular & smp.transmission,
+                                state["eta_scale"] * es_up, state["eta_scale"])
+        wi_world = trace.to_world(it, smp.wi)
+        no, nd = trace.spawn_ray(it, wi_world)
+
+        # ---- RR.  q MUST be detached: it is a function of the attached
+        # beta, and AD cannot see the survival indicator's matching boundary
+        # term, so an attached 1/(1-q) reweight biases d(image)/d(params).
+        rr_max = torch.max(beta * eta_scale[..., None], dim=-1).values.detach()
+        do_rr = (rr_max < cfg.rr_threshold) & (b > 3)
+        q = torch.clamp(1.0 - rr_max, min=0.05)
+        u_rr = ub[:, 7]
+        killed = do_rr & (u_rr < q)
+        beta = torch.where((do_rr & ~killed)[..., None],
+                           beta / torch.clamp(1.0 - q, min=1e-6)[..., None], beta)
+        alive = alive & ~killed
+
+        a3 = alive[..., None]
+        out = dict(
+            o=torch.where(a3, no, state["o"]),
+            d=torch.where(a3, nd, state["d"]),
+            beta=torch.where(a3, beta, state["beta"]),
+            L=L,
+            alive=alive,
+            specular=torch.where(alive, smp.specular, state["specular"]),
+            eta_scale=torch.where(alive, eta_scale, state["eta_scale"]),
+            prev_pdf=torch.where(alive, torch.clamp(smp.pdf, min=1e-12),
+                                 state["prev_pdf"]),
+            prev_p=torch.where(a3, it.p, state["prev_p"]),
+        )
+        if cfg.count_rays:
+            # 1 closest-hit cast per alive-at-entry lane + 1 shadow cast per
+            # NEE candidate (folded MIS: the extension ray IS the BSDF-side
+            # MIS sample, so no third cast)
+            nrays = state["nrays"] + _count(alive & has_ns & can)
+            if count_cast:
+                nrays = nrays + _count(state["alive"])
+            out["nrays"] = nrays
+        return out
+
+    return cast, emit, work
+
+
+def _make_fast_bounce(scene, cfg: RenderCfg, get_ub, n, rd=None):
+    """The per-bounce body of the fast-MIS loop.  get_ub(b) returns the
+    (n, DIMS_PER_BOUNCE) sample dims for bounce b."""
+    cast, emit, work = _fast_parts(scene, cfg, get_ub, n, rd=rd)
+
+    def bounce(b, state):
+        hit = cast(state)
+        it = trace.make_interaction(scene, cfg, state["o"], state["d"], hit)
+        state = dict(state, L=state["L"] + emit(b, state, hit, it=it))
+        return work(b, state, hit, it=it)
+
+    return bounce
+
+
+def trace_paths_fast(scene, cfg: RenderCfg, sampler, pixel, sample, o, d,
+                     rd=None):
+    """Path tracing with the folded-MIS estimator: emission found by the
+    extension ray is weighted by PowerHeuristic(bsdf_pdf, light_pdf) instead
+    of spawning a third per-bounce ray.  Same expectation, ~1/3 fewer scene
+    casts and one fewer BSDF sample per bounce."""
+    if cfg.pipeline_casts:
+        return _trace_loop_pipelined(scene, cfg, sampler, pixel, sample,
+                                     o, d, rd=rd)
+    return _trace_loop(scene, cfg, sampler, pixel, sample, o, d,
+                       _make_fast_bounce, rd=rd)
+
+
+def _trace_loop_pipelined(*a, **kw):
+    raise NotImplementedError(
+        "the software-pipelined loop (pipeline_casts=True) is not ported yet")
+
+
+def _prethin_p(alive, m):
+    """Pre-thinning RR survival probability for a compaction into an
+    m-slot buffer: p = min(1, (m - 4*sqrt(m)) / alive), a 0-dim tensor (no
+    host sync).  Unbiased (beta/p); E[kept] <= m - 4*sqrt(m) puts overflow
+    tens of sigmas out (kept is Binomial, std <= sqrt(m)/2), and p == 1 — a
+    no-op — in the common case where the survivors already fit."""
+    alive_count = _count(alive)
+    margin = m - 4.0 * float(m) ** 0.5
+    return torch.clamp(margin / torch.clamp(alive_count, min=1.0), max=1.0)
+
+
+def _compaction_stages(cfg, n):
+    """The (bounce, frac) stages that apply at width n: within max_depth,
+    dividing n, at least 256 lanes wide, widths strictly shrinking."""
+    stages = (tuple(cfg.compact_stages) if cfg.compact_stages
+              else ((cfg.compact_from, cfg.compact_frac),))
+    keep, last = [], n
+    for b, f in stages:
+        if b <= cfg.max_depth and n % f == 0 and n // f >= 256 and n // f < last:
+            keep.append((b, f))
+            last = n // f
+    return tuple(keep)
+
+
+def _trace_loop(scene, cfg: RenderCfg, sampler, pixel, sample, o, d,
+                make_bounce, rd=None):
+    """The bounce-loop runner.
+
+    With cfg.compact_tail: Russian roulette leaves only a few percent of
+    lanes alive past bounce 4, so survivors are compacted into an
+    n//compact_frac buffer after bounce `compact_from` and the tail bounces
+    run at that width; radiance is scattered back at the end.  Buffer widths
+    are fixed, as in the JAX package, so both compute the same thing.
+
+    Returns (N,3) radiance, or ((N,3), n_rays) when cfg.count_rays (n_rays
+    = useful scene casts: lanes actually tracing, not dispatch width)."""
+    if rd is not None:
+        raise NotImplementedError("ray differentials are not ported yet")
+    n = o.shape[0]
+    dev = o.device
+    n_dims = CAMERA_DIMS + DIMS_PER_BOUNCE * (cfg.max_depth + 1)
+    stages = _compaction_stages(cfg, n) if cfg.compact_tail else ()
+    n_dims_tot = n_dims + len(stages)
+    if not samplers.supports_inloop_dims(sampler):
+        raise NotImplementedError(
+            f"sampler kind {sampler.kind!r} is not ported yet")
+
+    def make_get_ub(pix, smp):
+        def get_ub(b):
+            base = CAMERA_DIMS + b * DIMS_PER_BOUNCE
+            return samplers.sample_bounce_dims(
+                sampler, pix, smp, base, DIMS_PER_BOUNCE, n_dims_tot)
+        return get_ub
+
+    state = dict(
+        o=o, d=d,
+        beta=torch.ones((n, 3), dtype=torch.float32, device=dev),
+        L=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        alive=torch.ones((n,), dtype=torch.bool, device=dev),
+        specular=torch.ones((n,), dtype=torch.bool, device=dev),  # bounce 0
+        eta_scale=torch.ones((n,), dtype=torch.float32, device=dev),
+        prev_pdf=torch.ones((n,), dtype=torch.float32, device=dev),
+        prev_p=o,
+    )
+    if cfg.count_rays:
+        state["nrays"] = torch.zeros((), dtype=torch.float32, device=dev)
+    bounce = make_bounce(scene, cfg, make_get_ub(pixel, sample), n)
+
+    # --- multi-stage compaction: run to each stage bounce, pre-thin (RR,
+    # unbiased) survivors into an n//frac buffer, continue; scatter the
+    # partial radiances back through the composed source maps at the end.
+    cur_pixel, cur_sample = pixel, sample
+    b_prev = 0
+    outer = []  # (L_at_this_width, src, valid) per stage
+    for si, (cb, frac) in enumerate(stages):
+        for b in range(b_prev, cb):
+            state = bounce(b, state)
+        b_prev = cb
+        n_cur = state["o"].shape[0]
+        m = n // frac
+        alive = state["alive"]
+        p_keep = _prethin_p(alive, m)
+        u_thin = samplers.sample_bounce_dims(
+            sampler, cur_pixel, cur_sample, n_dims + si, 1, n_dims_tot)[:, 0]
+        kept = alive & (u_thin < p_keep)
+        beta = state["beta"] / p_keep
+        # fixed-width compaction: slot m is a spare that takes every lane
+        # that is not kept (and any overflow) and is sliced off
+        slots = torch.cumsum(kept.to(torch.int64), dim=0) - 1
+        lane_id = torch.arange(n_cur, dtype=torch.int64, device=dev)
+        src = torch.zeros((m + 1,), dtype=torch.int64, device=dev)
+        src[torch.where(kept, torch.clamp(slots, max=m), m)] = lane_id
+        src = src[:m]
+        kept_count = torch.sum(kept.to(torch.int64))
+        valid = torch.arange(m, dtype=torch.int64, device=dev) < kept_count
+        outer.append((state["L"], src, valid))
+        new_state = dict(
+            o=state["o"][src], d=state["d"][src],
+            beta=beta[src],
+            L=torch.zeros((m, 3), dtype=torch.float32, device=dev),
+            alive=valid,
+            specular=state["specular"][src],
+            eta_scale=state["eta_scale"][src],
+            prev_pdf=state["prev_pdf"][src],
+            prev_p=state["prev_p"][src],
+        )
+        if cfg.count_rays:
+            new_state["nrays"] = state["nrays"]  # scalar: carries across widths
+        state = new_state
+        cur_pixel, cur_sample = cur_pixel[src], cur_sample[src]
+        bounce = make_bounce(scene, cfg, make_get_ub(cur_pixel, cur_sample), m)
+    for b in range(b_prev, cfg.max_depth + 1):
+        state = bounce(b, state)
+    L = state["L"]
+    for L_outer, src, valid in reversed(outer):
+        L = L_outer.index_add(0, src, torch.where(valid[..., None], L, 0.0))
+    if cfg.count_rays:
+        return L, state["nrays"]
+    return L
+
+
+# ---------------------------------------------------------------------------
+# Render loop
+# ---------------------------------------------------------------------------
+
+def render_chunk(scene, camera, sampler, cfg: RenderCfg, sample_start, n_samples):
+    """Render n_samples spp for every pixel on the scene's device; returns
+    the (H*W, 3) radiance sum, or (sum, n_rays) when cfg.count_rays."""
+    if cfg.has_textures:
+        raise NotImplementedError("image textures are not ported yet")
+    dev = scene.geom.vertices.device
+    hw = cfg.width * cfg.height
+    pixel = torch.arange(hw, dtype=torch.int32, device=dev).repeat(n_samples)
+    sample = torch.repeat_interleave(
+        int(sample_start) + torch.arange(n_samples, dtype=torch.int32,
+                                         device=dev), hw)
+    p_film, time_u, p_lens = samplers.camera_sample(
+        sampler, pixel, sample, cfg.width, cfg.pixel_filter,
+        cfg.filter_radius, cfg.filter_alpha)
+    o, d, _t = cam_mod.generate_rays(camera, p_film, time_u, p_lens)
+    tracer = trace_paths_fast if cfg.fast_mis else trace_paths
+    out = tracer(scene, cfg, sampler, pixel, sample, o, d)
+    L, nrays = out if cfg.count_rays else (out, None)
+    # box filter: each sample belongs to its own pixel -> segment sum by
+    # reshape (samples are pixel-major tiles)
+    img = torch.sum(L.reshape(n_samples, hw, 3), dim=0)
+    if cfg.count_rays:
+        return img, nrays
+    return img
+
+
+def render(scene, camera, sampler, cfg: RenderCfg):
+    """Full render: loops spp chunks on the host, accumulating on the
+    device.  Returns (H, W, 3) linear HDR radiance (mean over spp)."""
+    dev = scene.geom.vertices.device
+    hw = cfg.width * cfg.height
+    acc = torch.zeros((hw, 3), dtype=torch.float32, device=dev)
+    s = 0
+    while s < cfg.spp:
+        ns = min(cfg.spp_chunk, cfg.spp - s)
+        out = render_chunk(scene, camera, sampler, cfg, s, ns)
+        acc = acc + (out[0] if cfg.count_rays else out)
+        s += ns
+    img = acc / cfg.spp
+    return img.reshape(cfg.height, cfg.width, 3)

@@ -1,0 +1,274 @@
+"""Scene-level ray casting: closest-hit and any-hit over all primitive
+types, plus surface-interaction construction.
+
+A hit record is SoA tensors carrying prim ids; the surface interaction
+gathers positions/normals/uv and builds the shading frame.  The BVH and
+instancing branches of the JAX package are not ported yet and raise.
+The JAX package fetches per-triangle attributes with a one-hot matmul (a
+TPU device); plain index gathers give the same values here.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from ..constants import INFINITY, PI, gamma
+from ..utils.math import coordinate_system, cross, dot, face_forward, normalize
+from . import intersect
+
+PRIM_NONE = -1
+PRIM_TRI = 0
+PRIM_SPH = 1
+PRIM_INST = 2  # instanced base-mesh triangle (not ported)
+
+
+class Hit(NamedTuple):
+    hit: torch.Tensor       # (N,) bool
+    t: torch.Tensor         # (N,)
+    kind: torch.Tensor      # (N,) int32: PRIM_TRI / PRIM_SPH (valid where hit)
+    prim: torch.Tensor      # (N,) int32 triangle or sphere index
+    b: torch.Tensor         # (N,3) triangle barycentrics
+
+
+class Interaction(NamedTuple):
+    p: torch.Tensor         # (N,3) hit point
+    p_err: torch.Tensor     # (N,3) conservative position error bound
+    ng: torch.Tensor        # (N,3) geometric normal
+    ns: torch.Tensor        # (N,3) shading normal
+    ss: torch.Tensor        # (N,3) shading tangent (dpdu orthogonalized)
+    ts: torch.Tensor        # (N,3) shading bitangent
+    uv: torch.Tensor        # (N,2)
+    wo: torch.Tensor        # (N,3) world, toward viewer
+    mat: torch.Tensor       # (N,) int32 material id
+    light: torch.Tensor     # (N,) int32 area light id or -1
+
+
+def _unported(cfg):
+    if cfg.use_bvh:
+        raise NotImplementedError("BVH traversal is not ported yet "
+                                  "(use_bvh=True)")
+    if getattr(cfg, "n_inst", 0) > 0:
+        raise NotImplementedError("instancing is not ported yet (n_inst > 0)")
+
+
+def scene_intersect(scene, cfg, o, d, t_max):
+    """Closest hit across triangles and spheres.  With cfg.use_pallas the
+    triangle cast goes through the hand-written kernel's wrapper
+    (kernels/closest_hit.py)."""
+    _unported(cfg)
+    n = o.shape[0]
+    dev = o.device
+    t_best = intersect._lane_t_max(t_max, n, dev)
+    hit = torch.zeros((n,), dtype=torch.bool, device=dev)
+    kind = torch.full((n,), PRIM_NONE, dtype=torch.int32, device=dev)
+    prim = torch.zeros((n,), dtype=torch.int32, device=dev)
+    bary = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    if cfg.n_tris > 0:
+        if getattr(cfg, "use_pallas", False):
+            from ..kernels.closest_hit import closest_hit, tri_soa_from_mesh
+
+            soa = tri_soa_from_mesh(scene.geom.vertices, scene.geom.triangles)
+            th = closest_hit(o.contiguous(), d.contiguous(),
+                             t_best.contiguous(), soa)
+        else:
+            th = intersect.closest_triangle_hit(
+                o, d, t_best, scene.geom.vertices, scene.geom.triangles)
+        better = th.hit & (th.t < t_best)
+        t_best = torch.where(better, th.t, t_best)
+        hit = hit | better
+        kind = torch.where(better, PRIM_TRI, kind)
+        prim = torch.where(better, th.tri, prim)
+        bary = torch.where(better[..., None], th.b, bary)
+
+    if cfg.n_sphs > 0:
+        sh = intersect.closest_sphere_hit(
+            o, d, t_best, scene.geom.sph_center, scene.geom.sph_radius)
+        better = sh.hit & (sh.t < t_best)
+        t_best = torch.where(better, sh.t, t_best)
+        hit = hit | better
+        kind = torch.where(better, PRIM_SPH, kind)
+        prim = torch.where(better, sh.sph, prim)
+
+    return Hit(hit, torch.where(hit, t_best, INFINITY), kind, prim, bary)
+
+
+def scene_occluded(scene, cfg, o, d, t_max):
+    """Any-hit (shadow ray).  Plain PyTorch: the JAX package's brute-force
+    any-hit is XLA code too, not a TPU kernel."""
+    _unported(cfg)
+    n = o.shape[0]
+    occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    if cfg.n_tris > 0:
+        occ = occ | intersect.any_triangle_hit(
+            o, d, t_max, scene.geom.vertices, scene.geom.triangles)
+    if cfg.n_sphs > 0:
+        ok, _ = intersect.ray_spheres(o, d, t_max, scene.geom.sph_center,
+                                      scene.geom.sph_radius)
+        occ = occ | torch.any(ok, dim=-1)
+    return occ
+
+
+def _tri_vertices(g, tri_idx):
+    tri = g.triangles[tri_idx.long()].long()
+    return tri, g.vertices[tri[:, 0]], g.vertices[tri[:, 1]], g.vertices[tri[:, 2]]
+
+
+def tri_emission_attrs(scene, cfg, prim_idx):
+    """(p0, p1, p2, light_id) of a triangle hit — the data the integrators
+    need to evaluate emitted radiance at a BSDF-sampled hit."""
+    g = scene.geom
+    _, p0, p1, p2 = _tri_vertices(g, prim_idx)
+    return p0, p1, p2, g.tri_light[prim_idx.long()]
+
+
+def _shading_normal(g, tri, b, ng):
+    """Interpolated shading normal (falling back to ng where degenerate)
+    and ng flipped into its hemisphere."""
+    n0, n1, n2 = g.normals[tri[:, 0]], g.normals[tri[:, 1]], g.normals[tri[:, 2]]
+    ns = normalize(b[:, 0:1] * n0 + b[:, 1:2] * n1 + b[:, 2:3] * n2, eps=1e-20)
+    degen = torch.sum(ns * ns, dim=-1) < 0.5
+    ns = torch.where(degen[:, None], ng, ns)
+    return ns, face_forward(ng, ns)
+
+
+def tri_light_and_ng(scene, cfg, hit: Hit):
+    """(light_id, ng) of a triangle hit — the only Interaction fields the
+    emission term reads.  Matches make_interaction's ng exactly, including
+    the shading-normal face_forward fixup."""
+    g = scene.geom
+    is_tri = hit.kind == PRIM_TRI
+    tri_idx = torch.where(is_tri, hit.prim, 0)
+    tri, p0, p1, p2 = _tri_vertices(g, tri_idx)
+    light = g.tri_light[tri_idx.long()]
+    ng = normalize(cross(p0 - p2, p1 - p2))
+    if g.normals is not None:
+        _, ng = _shading_normal(g, tri, hit.b, ng)
+    return torch.where(is_tri, light, -1), ng
+
+
+def make_interaction(scene, cfg, o, d, hit: Hit) -> Interaction:
+    """Build the surface interaction for each (possibly invalid) lane."""
+    g = scene.geom
+    is_tri = hit.kind == PRIM_TRI
+    tri_idx = torch.where(is_tri, hit.prim, 0)
+    tri, p0, p1, p2 = _tri_vertices(g, tri_idx)
+    b = hit.b
+    # hit point from barycentrics, and its error bound gamma(7) * sum |bi pi|
+    p_tri = b[:, 0:1] * p0 + b[:, 1:2] * p1 + b[:, 2:3] * p2
+    p_err_tri = gamma(7) * (
+        torch.abs(b[:, 0:1] * p0) + torch.abs(b[:, 1:2] * p1)
+        + torch.abs(b[:, 2:3] * p2))
+    ng_tri = normalize(cross(p0 - p2, p1 - p2))
+    dpdu_tri = p1 - p0  # default UVs (0,0),(1,0),(1,1) -> dpdu = p1 - p0
+    if g.uvs is not None:
+        uv0, uv1, uv2 = g.uvs[tri[:, 0]], g.uvs[tri[:, 1]], g.uvs[tri[:, 2]]
+        duv02 = uv0 - uv2
+        duv12 = uv1 - uv2
+        det = duv02[:, 0] * duv12[:, 1] - duv02[:, 1] * duv12[:, 0]
+        ok = torch.abs(det) > 1e-12
+        inv = torch.where(ok, 1.0 / det, 0.0)
+        dpdu_uv = (duv12[:, 1:2] * (p0 - p2) - duv02[:, 1:2] * (p1 - p2)) * inv[:, None]
+        dpdu_tri = torch.where(ok[:, None], dpdu_uv, dpdu_tri)
+        uv_tri = b[:, 0:1] * uv0 + b[:, 1:2] * uv1 + b[:, 2:3] * uv2
+    else:
+        # default UVs: uv = b0*(0,0) + b1*(1,0) + b2*(1,1)
+        uv_tri = torch.stack([b[:, 1] + b[:, 2], b[:, 2]], dim=-1)
+    if g.normals is not None:
+        ns_tri, ng_tri = _shading_normal(g, tri, b, ng_tri)
+    else:
+        ns_tri = ng_tri
+    mat_tri = g.tri_mat[tri_idx.long()]
+    light_tri = g.tri_light[tri_idx.long()]
+    return _finish_interaction(scene, cfg, o, d, hit, p_tri, p_err_tri,
+                               ng_tri, ns_tri, dpdu_tri, uv_tri, mat_tri,
+                               light_tri)
+
+
+def _finish_interaction(scene, cfg, o, d, hit, p_tri, p_err_tri, ng_tri,
+                        ns_tri, dpdu_tri, uv_tri, mat_tri, light_tri):
+    g = scene.geom
+    if cfg.n_sphs > 0:
+        is_sph = hit.kind == PRIM_SPH
+        sph_idx = torch.where(is_sph, hit.prim, 0).long()
+        c = g.sph_center[sph_idx]
+        r = g.sph_radius[sph_idx]
+        p_s = o + hit.t[:, None] * d
+        # reproject onto the sphere (pbrt sphere hit refinement)
+        rel = p_s - c
+        rel = rel * (r / torch.clamp(torch.sqrt(torch.sum(rel * rel, -1)),
+                                     min=1e-12))[:, None]
+        p_sph = c + rel
+        ng_sph = normalize(rel)
+        # spherical uv + dpdu = (-y, x, 0) * 2pi
+        phi = torch.atan2(rel[:, 1], rel[:, 0])
+        phi = torch.where(phi < 0, phi + 2 * PI, phi)
+        theta = torch.acos(torch.clamp(rel[:, 2] / torch.clamp(r, min=1e-12),
+                                       -1.0, 1.0))
+        uv_sph = torch.stack([phi / (2 * PI), theta / PI], dim=-1)
+        dpdu_sph = torch.stack([-rel[:, 1], rel[:, 0], torch.zeros_like(r)],
+                               dim=-1)
+        p_err_sph = gamma(5) * torch.abs(p_sph)
+
+        pick = is_sph[:, None]
+        p = torch.where(pick, p_sph, p_tri)
+        p_err = torch.where(pick, p_err_sph, p_err_tri)
+        ng = torch.where(pick, ng_sph, ng_tri)
+        ns = torch.where(pick, ng_sph, ns_tri)
+        dpdu = torch.where(pick, dpdu_sph, dpdu_tri)
+        uv = torch.where(pick, uv_sph, uv_tri)
+        mat = torch.where(is_sph, g.sph_mat[sph_idx], mat_tri)
+        light = torch.where(is_sph, g.sph_light[sph_idx], light_tri)
+    else:
+        p, p_err, ng, ns, dpdu, uv, mat, light = (
+            p_tri, p_err_tri, ng_tri, ns_tri, dpdu_tri, uv_tri, mat_tri,
+            light_tri)
+
+    # shading frame: ss = normalized dpdu orthogonalized against ns
+    ss = dpdu - ns * torch.sum(ns * dpdu, dim=-1, keepdim=True)
+    len2 = torch.sum(ss * ss, dim=-1)
+    ss_cs, _ = coordinate_system(ns)
+    ss = torch.where((len2 > 1e-12)[:, None], ss * _rsqrt(len2)[:, None], ss_cs)
+    ts = cross(ns, ss)
+
+    return Interaction(
+        p=p, p_err=p_err, ng=ng, ns=ns, ss=ss, ts=ts, uv=uv,
+        wo=normalize(-d), mat=mat, light=light,
+    )
+
+
+def _rsqrt(x):
+    return 1.0 / torch.sqrt(torch.clamp(x, min=1e-24))
+
+
+def to_local(it: Interaction, v):
+    """World -> shading frame."""
+    return torch.stack([dot(v, it.ss), dot(v, it.ts), dot(v, it.ns)], dim=-1)
+
+
+def to_world(it: Interaction, v):
+    return v[..., 0:1] * it.ss + v[..., 1:2] * it.ts + v[..., 2:3] * it.ns
+
+
+def offset_ray_origin(p, p_err, ng, w):
+    """Robust ray-origin offset: move along ng by the projected error
+    bound, toward the side of w."""
+    dist = torch.sum(torch.abs(ng) * p_err, dim=-1, keepdim=True) + 1e-5
+    offset = dist * ng
+    offset = torch.where(torch.sum(w * ng, dim=-1, keepdim=True) < 0,
+                         -offset, offset)
+    return p + offset
+
+
+def spawn_ray(it: Interaction, w):
+    return offset_ray_origin(it.p, it.p_err, it.ng, w), w
+
+
+def shadow_ray(it: Interaction, target, is_infinite):
+    """Ray toward a light sample point; returns (o, d_unit, t_max)."""
+    o = offset_ray_origin(it.p, it.p_err, it.ng, target - it.p)
+    to_t = target - o
+    dist = torch.sqrt(torch.clamp(torch.sum(to_t * to_t, -1), min=1e-20))
+    d = to_t / dist[:, None]
+    t_max = torch.where(is_infinite, INFINITY, dist * (1.0 - 1e-3))
+    return o, d, t_max

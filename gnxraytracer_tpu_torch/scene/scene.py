@@ -1,0 +1,391 @@
+"""Scene as NamedTuples of SoA device tensors.
+
+Flat tables replace a pointer-based object graph: triangles carry int32 ids
+into the material / light tables and hit records gather per-hit parameters
+by id.  Field names are those of the JAX package's scene tables, so state
+carries across by name (see convert.py).
+
+Ported so far: triangle meshes, spheres, matte / mirror / smooth-glass
+materials, point / spot / distant / area / skybox lights.  The BVH build,
+textures, the environment map, media and instancing raise
+NotImplementedError.
+"""
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+# Material kinds (models/materials.py implements their lobe assemblies)
+MAT_MATTE = 0
+MAT_MIRROR = 1
+MAT_GLASS = 2
+MAT_METAL = 3
+MAT_PLASTIC = 4
+MAT_DISNEY = 5
+
+# Light kinds
+LIGHT_POINT = 0
+LIGHT_SPOT = 1
+LIGHT_DISTANT = 2
+LIGHT_AREA = 3
+LIGHT_INFINITE = 4
+LIGHT_SKYBOX = 5
+
+
+class Geometry(NamedTuple):
+    vertices: torch.Tensor        # (V,3) f32, world space (pre-transformed)
+    triangles: torch.Tensor       # (T,3) i32
+    normals: Optional[torch.Tensor]   # (V,3) shading normals or None
+    uvs: Optional[torch.Tensor]       # (V,2) or None
+    tri_mat: torch.Tensor         # (T,) i32 material id (-1 = null boundary)
+    tri_light: torch.Tensor       # (T,) i32 area-light id or -1
+    tri_medium: torch.Tensor      # (T,2) i32 [inside, outside] medium or -1
+    sph_center: torch.Tensor      # (S,3)
+    sph_radius: torch.Tensor      # (S,)
+    sph_mat: torch.Tensor         # (S,) i32
+    sph_light: torch.Tensor       # (S,) i32
+    sph_medium: torch.Tensor      # (S,2) i32 [inside, outside]
+
+
+class MaterialTable(NamedTuple):
+    """One row per material; columns cover the union of the material
+    parameter sets.  Unused columns are zero."""
+    kind: torch.Tensor      # (M,) i32
+    kd: torch.Tensor        # (M,3) diffuse / base color
+    sigma: torch.Tensor     # (M,) Oren-Nayar sigma (degrees)
+    kr: torch.Tensor        # (M,3) specular reflect scale
+    kt: torch.Tensor        # (M,3) specular transmit scale
+    ks: torch.Tensor        # (M,3) glossy scale
+    eta: torch.Tensor       # (M,) dielectric IOR
+    eta3: torch.Tensor      # (M,3) conductor eta
+    k3: torch.Tensor        # (M,3) conductor absorption
+    rough_u: torch.Tensor   # (M,)
+    rough_v: torch.Tensor   # (M,)
+    remap_rough: torch.Tensor  # (M,) 1.0 if roughness->alpha remap applies
+    kd_tex: torch.Tensor    # (M,) i32 texture id for kd, or -1
+    bump_tex: torch.Tensor  # (M,) i32 texture id for bump height, or -1
+    bump_scale: torch.Tensor  # (M,) bump height scale
+    # Disney 2015 extras
+    metallic: torch.Tensor       # (M,)
+    spec_trans: torch.Tensor     # (M,)
+    specular_tint: torch.Tensor  # (M,)
+    anisotropic: torch.Tensor    # (M,)
+    sheen: torch.Tensor          # (M,)
+    sheen_tint: torch.Tensor     # (M,)
+    clearcoat: torch.Tensor      # (M,)
+    clearcoat_gloss: torch.Tensor  # (M,)
+    flatness: torch.Tensor       # (M,)
+    diff_trans: torch.Tensor     # (M,)
+    thin: torch.Tensor           # (M,) 1.0 if thin surface
+
+
+class LightTable(NamedTuple):
+    kind: torch.Tensor       # (L,) i32
+    pos: torch.Tensor        # (L,3) point/spot world position
+    emit: torch.Tensor       # (L,3) I (point/spot), L (distant/area Lemit)
+    axis: torch.Tensor       # (L,3) spot axis / distant wLight direction
+    tri: torch.Tensor        # (L,) i32 area-light triangle id or -1
+    two_sided: torch.Tensor  # (L,)
+    cos_falloff: torch.Tensor  # (L,) spot cosFalloffStart
+    cos_total: torch.Tensor    # (L,) spot cosTotalWidth
+    scale: torch.Tensor      # (L,) extra radiance scale
+
+
+_INT_MATERIAL_COLS = ("kind", "kd_tex", "bump_tex")
+_INT_LIGHT_COLS = ("kind", "tri")
+
+
+class Scene(NamedTuple):
+    geom: Geometry
+    materials: MaterialTable
+    lights: LightTable
+    env: Optional[tuple]       # environment map: not ported, always None
+    textures: Optional[tuple]  # texture atlas: not ported, always None
+    media: Optional[tuple]     # participating media: not ported, always None
+    camera_medium: int
+    world_center: torch.Tensor  # (3,)
+    world_radius: torch.Tensor  # ()
+    bvh: Optional[tuple]  # BVH arrays: not ported, None -> brute force
+    light_dist: Optional[tuple] = None
+    instanced: Optional[tuple] = None
+    # power-strategy selection pmf, precomputed at build.  Frozen w.r.t.
+    # emission updates, which keeps the estimator unbiased (any fixed pmf
+    # does) and the selection pdf detached for gradients.
+    light_pmf: Optional[torch.Tensor] = None
+    big_tri_idx: Optional[torch.Tensor] = None
+
+    @property
+    def n_lights(self):
+        return self.lights.kind.shape[0]
+
+    @property
+    def device(self):
+        return self.geom.vertices.device
+
+
+def with_light_pmf(scene: Scene) -> Scene:
+    """Attach the power-strategy selection pmf (uniform when no light has
+    power)."""
+    from ..models.light_dist import light_powers
+
+    pw = light_powers(scene)
+    total = torch.sum(pw)
+    nl = pw.shape[0]
+    pmf = torch.where(total > 0, pw / torch.clamp(total, min=1e-12),
+                      torch.full((nl,), 1.0 / nl, device=pw.device))
+    return scene._replace(light_pmf=pmf)
+
+
+# ---------------------------------------------------------------------------
+# Builder
+# ---------------------------------------------------------------------------
+
+def _v3(x):
+    a = np.asarray(x, np.float32)
+    if a.ndim == 0:
+        a = np.full(3, float(a), np.float32)
+    return a
+
+
+class SceneBuilder:
+    """Accumulates host-side numpy geometry/material/light data, then
+    freezes into the Scene tables on a device."""
+
+    def __init__(self):
+        self.vertices = []
+        self.triangles = []
+        self.normals = []
+        self.uvs = []
+        self.tri_mat = []
+        self.tri_light = []
+        self.tri_medium = []
+        self.sph = []  # (center, radius, mat, light, medium)
+        self.materials = []  # dicts
+        self.lights = []  # dicts
+        self.camera_medium = -1
+        self._vtx_count = 0
+        self._has_normals = False
+        self._has_uvs = False
+
+    # -- not ported yet ------------------------------------------------------
+
+    def add_homogeneous_medium(self, *a, **kw):
+        raise NotImplementedError("participating media are not ported yet")
+
+    def add_grid_medium(self, *a, **kw):
+        raise NotImplementedError("participating media are not ported yet")
+
+    def add_texture(self, image):
+        raise NotImplementedError("image textures are not ported yet")
+
+    def add_instances(self, *a, **kw):
+        raise NotImplementedError("instancing is not ported yet")
+
+    def set_environment(self, image, light_to_world=None, scale=1.0):
+        raise NotImplementedError(
+            "the environment-map light is not ported yet")
+
+    # -- materials -----------------------------------------------------------
+
+    def add_material(self, kind, **kw):
+        m = dict(
+            kind=kind, kd=(0.5, 0.5, 0.5), sigma=0.0, kr=(1.0, 1.0, 1.0),
+            kt=(1.0, 1.0, 1.0), ks=(1.0, 1.0, 1.0), eta=1.5,
+            eta3=(1.0, 1.0, 1.0), k3=(1.0, 1.0, 1.0), rough_u=0.0,
+            rough_v=0.0, remap_rough=1.0, kd_tex=-1, bump_tex=-1,
+            bump_scale=1.0,
+            metallic=0.0, spec_trans=0.0, specular_tint=0.0, anisotropic=0.0,
+            sheen=0.0, sheen_tint=0.5, clearcoat=0.0, clearcoat_gloss=1.0,
+            flatness=0.0, diff_trans=1.0, thin=0.0,
+        )
+        m.update(kw)
+        self.materials.append(m)
+        return len(self.materials) - 1
+
+    def add_matte(self, kd, sigma=0.0, kd_tex=-1):
+        if kd_tex != -1:
+            raise NotImplementedError("image textures are not ported yet")
+        return self.add_material(MAT_MATTE, kd=kd, sigma=sigma, kd_tex=kd_tex)
+
+    def add_mirror(self, kr=(0.9, 0.9, 0.9)):
+        return self.add_material(MAT_MIRROR, kr=kr)
+
+    def add_glass(self, kr=(1.0, 1.0, 1.0), kt=(1.0, 1.0, 1.0), eta=1.5,
+                  rough_u=0.0, rough_v=0.0):
+        return self.add_material(MAT_GLASS, kr=kr, kt=kt, eta=eta,
+                                 rough_u=rough_u, rough_v=rough_v)
+
+    # -- geometry ------------------------------------------------------------
+
+    def add_mesh(self, vertices, triangles, material, light=-1, transform=None,
+                 normals=None, uvs=None, medium=(-1, -1)):
+        """vertices (V,3), triangles (T,3) int; optional 4x4 transform
+        applied host-side.  Returns the (first, count) triangle id range."""
+        v = np.asarray(vertices, np.float64)
+        if transform is not None:
+            t = np.asarray(transform, np.float64)
+            v = v @ t[:3, :3].T + t[:3, 3]
+        tri = np.asarray(triangles, np.int64).reshape(-1, 3)
+        base = self._vtx_count
+        self.vertices.append(v.astype(np.float32))
+        self.triangles.append((tri + base).astype(np.int32))
+        n = len(tri)
+        self.tri_mat.append(np.full(n, material, np.int32))
+        self.tri_light.append(np.full(n, light, np.int32))
+        self.tri_medium.append(np.tile(np.asarray(medium, np.int32), (n, 1)))
+        if normals is not None:
+            nr = np.asarray(normals, np.float64)
+            if transform is not None:
+                t = np.asarray(transform, np.float64)
+                inv_t = np.linalg.inv(t[:3, :3]).T
+                nr = nr @ inv_t.T
+                nr /= np.linalg.norm(nr, axis=1, keepdims=True)
+            self.normals.append(nr.astype(np.float32))
+            self._has_normals = True
+        else:
+            self.normals.append(None)
+        if uvs is not None:
+            self.uvs.append(np.asarray(uvs, np.float32))
+            self._has_uvs = True
+        else:
+            self.uvs.append(None)
+        self._vtx_count += len(v)
+        first_tri = sum(len(t) for t in self.triangles[:-1])
+        return first_tri, n
+
+    def add_sphere(self, center, radius, material, light=-1, medium=(-1, -1)):
+        self.sph.append((np.asarray(center, np.float32), float(radius),
+                         int(material), int(light), np.asarray(medium, np.int32)))
+        return len(self.sph) - 1
+
+    # -- lights --------------------------------------------------------------
+
+    def _light(self, kind, **kw):
+        l = dict(kind=kind, pos=(0.0, 0.0, 0.0), emit=(0.0, 0.0, 0.0),
+                 axis=(0.0, 0.0, 1.0), tri=-1, two_sided=0.0,
+                 cos_falloff=1.0, cos_total=0.0, scale=1.0)
+        l.update(kw)
+        self.lights.append(l)
+        return len(self.lights) - 1
+
+    def add_point_light(self, pos, intensity):
+        return self._light(LIGHT_POINT, pos=pos, emit=intensity)
+
+    def add_spot_light(self, pos, axis, intensity, total_width_deg, falloff_start_deg):
+        return self._light(
+            LIGHT_SPOT, pos=pos, axis=axis, emit=intensity,
+            cos_total=float(np.cos(np.deg2rad(total_width_deg))),
+            cos_falloff=float(np.cos(np.deg2rad(falloff_start_deg))),
+        )
+
+    def add_distant_light(self, w_light, radiance):
+        return self._light(LIGHT_DISTANT, axis=w_light, emit=radiance)
+
+    def add_area_light_tri(self, tri_id, l_emit, two_sided=False):
+        return self._light(LIGHT_AREA, emit=l_emit, tri=tri_id,
+                           two_sided=1.0 if two_sided else 0.0)
+
+    def add_skybox_light(self, scale=1.0):
+        """Skybox with no image data: Le is a position gradient on the
+        world sphere and its sampled radiance is black (the reference
+        renderer's behaviour when its image fails to load)."""
+        return self._light(LIGHT_SKYBOX, scale=scale)
+
+    # -- freeze --------------------------------------------------------------
+
+    def build(self, bvh=False, device="cuda"):
+        if bvh:
+            raise NotImplementedError(
+                "the BVH build is not ported yet; build(bvh=False) casts by "
+                "brute force")
+        dev = resolve_device(device)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        if self.vertices:
+            verts = np.concatenate(self.vertices, 0)
+            tris = np.concatenate(self.triangles, 0)
+            tri_mat = np.concatenate(self.tri_mat, 0)
+            tri_light = np.concatenate(self.tri_light, 0)
+            tri_medium = np.concatenate(self.tri_medium, 0)
+        else:
+            verts = np.zeros((3, 3), np.float32)
+            tris = np.zeros((1, 3), np.int32)
+            tri_mat = np.zeros(1, np.int32)
+            tri_light = np.full(1, -1, np.int32)
+            tri_medium = np.full((1, 2), -1, np.int32)
+
+        normals = None
+        if self._has_normals:
+            normals = np.concatenate(
+                [n if n is not None else np.zeros_like(v)
+                 for n, v in zip(self.normals, self.vertices)], 0)
+        uvs = None
+        if self._has_uvs:
+            uvs = np.concatenate(
+                [u if u is not None else np.zeros((len(v), 2), np.float32)
+                 for u, v in zip(self.uvs, self.vertices)], 0)
+
+        if self.sph:
+            sc = np.stack([s[0] for s in self.sph])
+            sr = np.asarray([s[1] for s in self.sph], np.float32)
+            sm = np.asarray([s[2] for s in self.sph], np.int32)
+            sl = np.asarray([s[3] for s in self.sph], np.int32)
+            smed = np.stack([s[4] for s in self.sph]).astype(np.int32)
+        else:
+            sc = np.zeros((0, 3), np.float32)
+            sr = np.zeros((0,), np.float32)
+            sm = np.zeros((0,), np.int32)
+            sl = np.zeros((0,), np.int32)
+            smed = np.zeros((0, 2), np.int32)
+
+        geom = Geometry(
+            vertices=put(verts), triangles=put(tris),
+            normals=None if normals is None else put(normals),
+            uvs=None if uvs is None else put(uvs),
+            tri_mat=put(tri_mat), tri_light=put(tri_light),
+            tri_medium=put(tri_medium),
+            sph_center=put(sc), sph_radius=put(sr),
+            sph_mat=put(sm), sph_light=put(sl), sph_medium=put(smed),
+        )
+
+        if not self.materials:
+            self.add_matte((0.5, 0.5, 0.5))
+        mat = MaterialTable(**{
+            k: put(np.asarray(
+                [m[k] for m in self.materials],
+                np.int32 if k in _INT_MATERIAL_COLS else np.float32))
+            for k in MaterialTable._fields
+        })
+
+        if not self.lights:
+            self._light(LIGHT_POINT, emit=(0.0, 0.0, 0.0))
+        lights = LightTable(**{
+            k: put(np.asarray(
+                [l[k] for l in self.lights],
+                np.int32 if k in _INT_LIGHT_COLS else np.float32))
+            for k in LightTable._fields
+        })
+
+        # world bounds -> bounding sphere
+        pts = [verts] if len(verts) else []
+        if len(sc):
+            pts += [sc - sr[:, None], sc + sr[:, None]]
+        allp = np.concatenate(pts, 0) if pts else np.zeros((1, 3), np.float32)
+        lo, hi = allp.min(0), allp.max(0)
+        center = (lo + hi) / 2
+        radius = float(np.linalg.norm(hi - center))
+
+        scene = Scene(
+            geom=geom, materials=mat, lights=lights, env=None, textures=None,
+            media=None, camera_medium=self.camera_medium,
+            world_center=torch.tensor(center, dtype=torch.float32, device=dev),
+            world_radius=torch.tensor(max(radius, 1e-3), dtype=torch.float32,
+                                      device=dev),
+            bvh=None,
+        )
+        return with_light_pmf(scene)

@@ -1,0 +1,301 @@
+"""The port stands alone: importing it pulls in neither jax nor the JAX
+package; its entry points refuse to run without a CUDA device unless the
+caller names the CPU; and every branch that is not ported yet raises
+NotImplementedError (or, from the CLI, exits with a message that names what
+to use instead) rather than doing something else."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import gnxraytracer_tpu_torch
+from gnxraytracer_tpu_torch import cli
+from gnxraytracer_tpu_torch.models import lights as T_lights
+from gnxraytracer_tpu_torch.models.integrators import path as T_path
+from gnxraytracer_tpu_torch.ops import samplers as T_smp
+from gnxraytracer_tpu_torch.ops import trace as T_trace
+from gnxraytracer_tpu_torch.scene import camera as T_cam
+from gnxraytracer_tpu_torch.scene import presets as T_presets
+from gnxraytracer_tpu_torch.scene import scene as T_scene
+from gnxraytracer_tpu_torch.utils.device import resolve_device
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(gnxraytracer_tpu_torch.__file__)
+
+
+def port_modules():
+    names = ["gnxraytracer_tpu_torch"]
+    for m in pkgutil.walk_packages([PKG_DIR], "gnxraytracer_tpu_torch."):
+        names.append(m.name)
+    return sorted(names)
+
+
+def port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG_DIR):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def test_every_module_is_found():
+    mods = port_modules()
+    for want in ("cli", "convert", "constants", "kernels.closest_hit",
+                 "kernels.build", "ops.trace", "ops.intersect", "ops.sobol",
+                 "models.integrators.path", "models.lights", "scene.presets",
+                 "utils.image"):
+        assert f"gnxraytracer_tpu_torch.{want}" in mods
+
+
+def test_fresh_interpreter_imports_no_jax():
+    """Import every module of the port (and chip_smoke.py) in a new
+    interpreter: jax and gnxraytracer_tpu stay out of sys.modules."""
+    code = (
+        "import sys, importlib\n"
+        "def banned(m):\n"
+        "    top = m.split('.')[0]\n"
+        "    return top in ('jax', 'jaxlib', 'gnxraytracer_tpu')\n"
+        "for m in [m for m in sys.modules if banned(m)]:\n"
+        "    del sys.modules[m]\n"  # whatever a site hook preloaded
+        f"sys.path.insert(0, {ROOT!r})\n"
+        f"for name in {port_modules() + ['chip_smoke']!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if banned(m))\n"
+        "assert not bad, bad\n"
+        "assert 'torch' in sys.modules\n"
+        "print('CLEAN', len(sys.modules))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "CLEAN" in r.stdout
+
+
+@pytest.mark.parametrize("path", port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_names_no_jax(path):
+    """No import statement of the port names jax or the JAX package, not
+    even inside a function."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "gnxraytracer_tpu"), \
+                f"{path}:{node.lineno} imports {n}"
+
+
+# -- the device is explicit ---------------------------------------------------
+
+def _no_cuda():
+    return not torch.cuda.is_available()
+
+
+ENTRY_POINTS = {
+    "resolve_device": lambda **kw: resolve_device(**kw),
+    "cornell_box": lambda **kw: T_presets.cornell_box(16, 16, **kw),
+    "sphere_point_light": lambda **kw: T_presets.sphere_point_light(8, 8, **kw),
+    "SceneBuilder.build": lambda **kw: T_scene.SceneBuilder().build(**kw),
+    "make_perspective_camera": lambda **kw: T_cam.make_perspective_camera(
+        8, 8, (0, 0, 5), (0, 0, 0), **kw),
+    "make_orthographic_camera": lambda **kw: T_cam.make_orthographic_camera(
+        8, 8, (0, 0, 5), (0, 0, 0), **kw),
+    "make_sobol_sampler": lambda **kw: T_smp.make_sobol_sampler(4, **kw),
+    "make_random_sampler": lambda **kw: T_smp.make_random_sampler(4, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_needs_cuda_unless_cpu_is_named(name):
+    fn = ENTRY_POINTS[name]
+    fn(device="cpu")  # works when the CPU is asked for
+    if not _no_cuda():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()  # default device is "cuda": never carries on on the CPU
+
+
+def test_cli_needs_cuda_unless_cpu_flag(tmp_path, capsys):
+    args = ["render", "--preset", "cornell", "--sampler", "sobol", "--fast-mis",
+            "--width", "16", "--height", "16", "--spp", "2", "--spp-chunk", "2"]
+    out = tmp_path / "x.png"
+    npy = tmp_path / "x.npy"
+    cli.main(args + ["--cpu", "--out", str(out), "--out-npy", str(npy)])
+    img = np.load(npy)
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0
+    assert out.stat().st_size > 0
+    assert '"device": "cpu"' in capsys.readouterr().out
+    if _no_cuda():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            cli.main(args)
+
+
+def test_cli_resume_from_checkpoint(tmp_path):
+    ck = tmp_path / "ck.npz"
+    base = ["render", "--preset", "sphere", "--sampler", "random", "--fast-mis",
+            "--width", "8", "--height", "8", "--spp-chunk", "2", "--cpu",
+            "--checkpoint", str(ck)]
+    a, b = tmp_path / "a.npy", tmp_path / "b.npy"
+    cli.main(base + ["--spp", "2"])
+    cli.main(base + ["--spp", "4", "--resume", "--out-npy", str(a)])
+    cli.main(base[:-2] + ["--spp", "4", "--out-npy", str(b)])
+    np.testing.assert_allclose(np.load(a), np.load(b), rtol=1e-6)
+
+
+@pytest.mark.parametrize("argv,names", [
+    (["--sampler", "sobol"], "--sampler sobol --fast-mis"),       # faithful
+    (["--fast-mis"], "--sampler sobol --fast-mis"),               # halton
+    (["--sampler", "sobol", "--fast-mis", "--preset", "envmap"], "envmap"),
+    (["--sampler", "sobol", "--fast-mis", "--preset", "cornell-mesh"],
+     "cornell-mesh"),
+    (["--sampler", "sobol", "--fast-mis", "--integrator", "whitted"],
+     "whitted"),
+    (["--sampler", "sobol", "--fast-mis", "--view"], "--view"),
+])
+def test_cli_names_what_is_not_ported(argv, names):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["render", "--cpu", "--width", "8", "--height", "8"] + argv)
+    assert "not ported" in str(e.value) and names in str(e.value)
+
+
+def _render_flags(cli_module, monkeypatch):
+    """{flag: (default, choices, type)} of a CLI's render subcommand, read
+    from the parser that its main() builds."""
+    import argparse
+
+    class Captured(Exception):
+        pass
+
+    def capture(self, args=None, namespace=None):
+        raise Captured(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(Captured) as e:
+        cli_module.main([])
+    monkeypatch.undo()
+    parser = e.value.args[0]
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    assert set(sub.choices) == {"render", "presets"}
+    return {a.option_strings[0]: (a.default, a.choices and sorted(a.choices),
+                                  a.type)
+            for a in sub.choices["render"]._actions
+            if a.option_strings and a.option_strings[0] != "-h"}
+
+
+def test_cli_flags_and_defaults_are_the_jax_clis(monkeypatch):
+    """Same render flags, defaults and choices as the JAX CLI."""
+    from gnxraytracer_tpu import cli as jax_cli
+
+    ours = _render_flags(cli, monkeypatch)
+    theirs = _render_flags(jax_cli, monkeypatch)
+    assert ours == theirs
+    assert "--cpu" in ours and "--fast-mis" in ours
+    assert theirs["--sampler"][0] == "halton" and theirs["--width"][0] == 500
+
+
+# -- what is not ported raises --------------------------------------------------
+
+def _cornell():
+    return T_presets.cornell_box(16, 16, device="cpu")
+
+
+def _builder_calls():
+    b = T_scene.SceneBuilder
+    return {
+        "build(bvh=True)": lambda: b().build(bvh=True, device="cpu"),
+        "add_texture": lambda: b().add_texture(np.zeros((2, 2, 3))),
+        "add_matte(kd_tex)": lambda: b().add_matte((1, 1, 1), kd_tex=0),
+        "set_environment": lambda: b().set_environment(np.zeros((2, 4, 3))),
+        "add_homogeneous_medium": lambda: b().add_homogeneous_medium(1, 1),
+        "add_grid_medium": lambda: b().add_grid_medium(np.zeros((2, 2, 2)), 1, 1),
+        "add_instances": lambda: b().add_instances(),
+        "cornell_box(bvh=True)": lambda: T_presets.cornell_box(
+            8, 8, bvh=True, device="cpu"),
+        "make_halton_sampler": lambda: T_smp.make_halton_sampler(
+            4, 8, 8, device="cpu"),
+        "generate_ray_differentials": lambda: T_cam.generate_ray_differentials(
+            None, None, None, None),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_builder_calls()))
+def test_unported_builder_call_raises(name):
+    with pytest.raises(NotImplementedError):
+        _builder_calls()[name]()
+
+
+def _render(**kw):
+    scene, cam = _cornell()
+    cfg = T_path.make_config(scene, 16, 16, spp=1, spp_chunk=1, **kw)
+    return T_path.render_chunk(scene, cam,
+                               T_smp.make_sobol_sampler(1, device="cpu"),
+                               cfg, 0, 1)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fast_mis=False),
+    dict(fast_mis=True, pipeline_casts=True),
+    dict(fast_mis=True, use_bvh=True),
+    dict(fast_mis=True, light_strategy="spatial"),
+    dict(fast_mis=True, has_textures=True),
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_unported_render_branch_raises(kw):
+    if "has_textures" in kw:
+        scene, cam = _cornell()
+        cfg = T_path.make_config(scene, 16, 16, spp=1, fast_mis=True)
+        cfg = cfg._replace(has_textures=True)
+        with pytest.raises(NotImplementedError):
+            T_path.render_chunk(scene, cam,
+                                T_smp.make_sobol_sampler(1, device="cpu"),
+                                cfg, 0, 1)
+        return
+    with pytest.raises(NotImplementedError):
+        _render(**kw)
+
+
+def test_unported_material_and_light_kinds_raise():
+    b = T_scene.SceneBuilder()
+    m = b.add_material(T_scene.MAT_DISNEY)
+    b.add_sphere((0, 0, 0), 1.0, m)
+    with pytest.raises(NotImplementedError):
+        T_path.make_config(b.build(device="cpu"), 8, 8, spp=1)
+    b = T_scene.SceneBuilder()
+    b.add_sphere((0, 0, 0), 1.0, b.add_glass(rough_u=0.2, rough_v=0.2))
+    with pytest.raises(NotImplementedError):
+        T_path.make_config(b.build(device="cpu"), 8, 8, spp=1)
+    # an environment light (kind 4) in the light table
+    scene, _ = _cornell()
+    cfg = T_path.make_config(scene, 8, 8, spp=1)._replace(light_kinds=(3, 4, 5))
+    z = torch.zeros((4, 3))
+    idx = torch.zeros((4,), dtype=torch.int32)
+    for call in (lambda: T_lights.sample_li(scene, cfg, idx, z, z[:, :2]),
+                 lambda: T_lights.pdf_li(scene, cfg, idx, z, z),
+                 lambda: T_lights.escaped_radiance(scene, cfg, z, z)):
+        with pytest.raises(NotImplementedError):
+            call()
+
+
+def test_unported_trace_branches_raise():
+    scene, _ = _cornell()
+    cfg = T_path.make_config(scene, 8, 8, spp=1)
+    o = torch.zeros((4, 3))
+    d = torch.ones((4, 3))
+    t = torch.ones((4,))
+    for bad in (cfg._replace(use_bvh=True), cfg._replace(n_inst=1)):
+        with pytest.raises(NotImplementedError):
+            T_trace.scene_intersect(scene, bad, o, d, t)
+        with pytest.raises(NotImplementedError):
+            T_trace.scene_occluded(scene, bad, o, d, t)
+    with pytest.raises(NotImplementedError):
+        T_path.trace_paths(scene, cfg, None, None, None, o, d)
+    with pytest.raises(NotImplementedError):
+        T_path.estimate_direct()
