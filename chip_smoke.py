@@ -4,31 +4,41 @@ GPU: the quickest proof that the port still starts on the card.
 
     python3 chip_smoke.py
 
-needs one CUDA device, nvcc, and no arguments (``--profile`` adds a
-torch.profiler breakdown of one chunk of the main path).  It imports nothing of JAX and
-nothing of the JAX package.  Phases, each of which fails the run (exit code
-other than 0, no result line) when it fails; nothing falls back to the CPU or
-to a plain version:
+needs one CUDA device, nvcc, g++ and no arguments (``--profile`` adds a
+torch.profiler breakdown of one chunk of each main path).  It imports nothing
+of JAX and nothing of the JAX package.  Phases, each of which fails the run
+(exit code other than 0, no result line) when it fails; nothing falls back to
+the CPU or to a plain version:
 
   1. device   CUDA present; name and power limit from nvidia-smi
-  2. build    nvcc builds csrc/*.cu (all sources started together) into the
-              package's build directory
+  2. build    nvcc builds csrc/*.cu (all sources started together) and g++
+              the native BVH builder into the package's build directory
   3. kernels  each kernel's wrapper against its plain PyTorch version on the
-              card, at the shapes the main path gives it, plus a
-              1,000-triangle soup and the shared-edge ray set; its time, the
-              plain version's time and the card's bound for the same work
-  4. main     path.render of the Cornell box at 500x500, depth 8, Sobol',
+              card, at the shapes its main path gives it, plus ragged counts,
+              dead lanes, t_max cut short and the shared-edge ray set; its
+              time, the plain version's time and the card's bound for the
+              same work
+  4. cornell  path.render of the Cornell box at 500x500, depth 8, Sobol',
               spp_chunk=4 (1M lanes a chunk), fast_mis + compact_tail +
-              use_pallas, 16 spp, and the CLI's render command; launch
-              counts are set to 0 just before and read just after
-  5. golden   64x64, 64 spp on the card against the reference renderer's
-              image tests/golden/ref_path_cornell.npz
+              use_pallas, 8 spp, and the CLI's render command
+  5. mesh     path.render of presets.envmap_mesh (104,882-triangle blob,
+              Disney, EWA-textured floor, HDR environment light from a
+              procedural .hdr file) at 500x500, depth 8, 1M lanes a chunk,
+              pipeline_casts with the bench's four compaction stages, 8 spp;
+              the same chunk with the coherence sort off; the CLI's
+              ``--preset envmap``; a 64x64 render with the kernels against
+              the same render with the plain walk
+  6. golden   64x64, 64 spp Cornell on the card against the reference
+              renderer's image tests/golden/ref_path_cornell.npz
 
-Every phase prints one JSON object on a line of its own.  The line before
-the last is the {"kernels": [...]} record, the last line is
+Launch counts are set to 0 just before each main path is driven and read
+just after.  Every phase prints one JSON object on a line of its own.  The
+line before the last is the {"kernels": [...]} record, the last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -44,13 +54,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Published peaks of one H100 SXM (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-# f32 operations of one watertight ray-triangle test (csrc/closest_hit.cu)
+# f32 operations of one watertight ray-triangle test (csrc/watertight.cuh)
 OPS_PER_PAIR = 150
+# f32 operations of one quantized child-box test (csrc/wide_bvh.cu): 6
+# dequantizations (convert, multiply, add), 6 subtract-multiplies, 10 min/max,
+# the widening and 4 compares
+OPS_PER_SLAB = 45
 
 WIDTH = HEIGHT = 500
 MAX_DEPTH = 8
 SPP_CHUNK = 4
-SPP = 16
+SPP = 8
+MESH_STAGES = ((0, 2), (1, 16), (2, 32), (4, 64))
+PLAIN_SUBSAMPLE = 100_000  # rays the plain walk takes of a 1M-ray set
 
 T_RTOL = 1e-5   # t: kernel vs plain version
 B_ATOL = 1e-5   # barycentrics: kernel vs plain version
@@ -98,8 +114,17 @@ def time_cuda(fn, reps, flush=None):
     return float(np.median(times))
 
 
+def bound(bytes_moved, ops):
+    """The least time the card could take: (ms, what binds it, bytes ms,
+    operations ms)."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms, ops_ms)
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the closest-hit kernel against its plain version
+# phase 3a: the brute-force closest-hit kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def main_path_rays(dev):
@@ -162,9 +187,10 @@ def shared_edge(dev, n=500):
     return put(soa), put(o), put(d), put(np.full(n, 1e30, np.float32))
 
 
-def compare_hits(name, got, ref, t_max):
-    """Kernel against plain version: hit and tri identical, t and b within
-    the stated tolerances, dead lanes inert.  Returns max |error|."""
+def compare_hits(name, got, ref, t_max, miss_b=(0.0, 0.0, 0.0)):
+    """Kernel against plain version: hit and tri identical, t within T_RTOL,
+    b within B_ATOL, dead lanes inert, a miss carries t = INFINITY, tri = 0
+    and b = miss_b.  Returns max |error|."""
     check(torch.equal(got.hit, ref.hit),
           f"{name}: hit differs on {int((got.hit != ref.hit).sum())} lanes")
     check(torch.equal(got.tri, ref.tri),
@@ -178,10 +204,11 @@ def compare_hits(name, got, ref, t_max):
     b_err = (got.b - ref.b).abs()
     check(float(b_err.max()) <= B_ATOL,
           f"{name}: b differs by up to {float(b_err.max())}")
-    dead = t_max <= 0
-    check(not bool(got.hit[dead].any()), f"{name}: a dead lane hit")
-    check(bool((got.tri[~got.hit] == 0).all() and (got.b[~got.hit] == 0).all()),
-          f"{name}: a miss does not carry tri = 0, b = 0")
+    check(not bool(got.hit[t_max <= 0].any()), f"{name}: a dead lane hit")
+    want_b = torch.tensor(miss_b, device=got.b.device)
+    check(bool((got.tri[~got.hit] == 0).all()
+               and (got.b[~got.hit] == want_b).all()),
+          f"{name}: a miss does not carry tri = 0, b = {miss_b}")
     return max(float(t_err.max()), float(b_err.max()))
 
 
@@ -244,24 +271,270 @@ def phase_kernels(dev):
     ms_tail = time_cuda(lambda: ch.closest_hit(o[:m], d[:m], t_all[:m], soa),
                         30, flush)
     n_active = int((t_all > 0).sum())
-    bytes_moved = n * (28 + 21) + 36 * n_tri
-    ops = n_active * n_tri * OPS_PER_PAIR
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_FLOP_PER_S * 1e3
+    bound_ms, bound_by, bytes_ms, ops_ms = bound(
+        n * (28 + 21) + 36 * n_tri, n_active * n_tri * OPS_PER_PAIR)
     return ch, dict(
         name="closest_hit", route="cuda",
         source="gnxraytracer_tpu_torch/csrc/closest_hit.cu",
         replaces="gnxraytracer_tpu/ops/pallas_intersect.py:33",
         launches=None, max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,  # no single PyTorch call computes this function
         shape={"n_rays": n, "n_tris": n_tri}, bytes_ms=bytes_ms, ops_ms=ops_ms,
         ms_tail_125k_rays=ms_tail)
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the main path and the golden image
+# phase 3b: the wide-BVH kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def write_procedural_hdr(path, h=500, w=1000):
+    """A flat (non-RLE) Radiance RGBE file: a sky gradient, a darker ground
+    half and a small sun, so the environment light has something to
+    importance-sample."""
+    v = (np.arange(h, dtype=np.float32)[:, None] + 0.5) / h
+    u = (np.arange(w, dtype=np.float32)[None, :] + 0.5) / w
+    sky = np.clip(1.0 - 1.6 * v, 0.0, 1.0)
+    img = np.stack([0.25 + 0.6 * sky + 0.1 * np.sin(6.283 * u),
+                    0.30 + 0.8 * sky + 0.0 * u,
+                    0.35 + 1.4 * sky + 0.1 * np.cos(6.283 * u)], -1)
+    sun = ((u - 0.3) ** 2 * 4 + (v - 0.2) ** 2) < 0.0004
+    img[sun] = (900.0, 800.0, 600.0)
+    img = img.astype(np.float32)
+    m = img.max(-1)
+    e = np.ceil(np.log2(np.maximum(m, 1e-30))).astype(np.int32)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.clip(img / np.exp2(e)[..., None] * 256.0, 0, 255)
+    rgbe[..., 3] = np.where(m > 1e-30, e + 128, 0)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(rgbe.tobytes())
+    return path
+
+
+def mesh_setup(dev, tmp, width=WIDTH, height=HEIGHT, spp=SPP, **kw):
+    """Scene, camera, configuration and sampler of the mesh main path:
+    presets.envmap_mesh with a procedural HDR environment, depth 8, Sobol',
+    1M lanes a chunk at 500x500, fast_mis + compact_tail + pipeline_casts
+    with the bench's compaction stages; the casts go through the wide-BVH
+    kernels (make_config picks them on a CUDA scene)."""
+    from gnxraytracer_tpu_torch.models.integrators import path
+    from gnxraytracer_tpu_torch.ops import samplers
+    from gnxraytracer_tpu_torch.scene import presets
+
+    hdr = os.path.join(tmp, "procedural_env.hdr")
+    if not os.path.exists(hdr):
+        write_procedural_hdr(hdr)
+    t0 = time.time()
+    scene, cam = presets.envmap_mesh(width, height, hdr_path=hdr, device=dev)
+    build_s = time.time() - t0
+    cfg = path.make_config(
+        scene, width, height, spp=spp, max_depth=MAX_DEPTH,
+        spp_chunk=SPP_CHUNK, rr_threshold=1.0, fast_mis=True,
+        compact_tail=True, pipeline_casts=True, compact_stages=MESH_STAGES,
+        count_rays=True, **kw)
+    return scene, cam, cfg, samplers.make_sobol_sampler(spp, device=dev), build_s
+
+
+def mesh_rays(dev, scene, cam, cfg):
+    """The three kinds of 1M-ray sets the mesh main path casts: camera rays
+    (4 spp), the cosine-fanned bounce rays that leave the surfaces they hit
+    (lanes whose camera ray escaped are dead, t_max = 0), and the shadow
+    rays toward environment-light samples from the same hit points."""
+    from gnxraytracer_tpu_torch.constants import INFINITY
+    from gnxraytracer_tpu_torch.models import bxdf, lights
+    from gnxraytracer_tpu_torch.ops import samplers, trace
+
+    smp = samplers.make_sobol_sampler(SPP_CHUNK, device=dev)
+    hw = WIDTH * HEIGHT
+    pixel = torch.arange(hw, dtype=torch.int32, device=dev).repeat(SPP_CHUNK)
+    sample = torch.repeat_interleave(
+        torch.arange(SPP_CHUNK, dtype=torch.int32, device=dev), hw)
+    p_film, t_u, p_lens = samplers.camera_sample(smp, pixel, sample, WIDTH)
+    from gnxraytracer_tpu_torch.scene import camera
+    o, d, _ = camera.generate_rays(cam, p_film, t_u, p_lens)
+    n = o.shape[0]
+    t_inf = torch.full((n,), INFINITY, dtype=torch.float32, device=dev)
+    hit = trace.scene_intersect(scene, cfg, o, d, t_inf)
+    it = trace.make_interaction(scene, cfg, o, d, hit)
+    ub = samplers.sample_bounce_dims(smp, pixel, sample, 5, 8, 13)
+    wi = bxdf.diffuse_sample_wi(trace.to_local(it, it.wo), ub[:, 5:7])
+    o2, d2 = trace.spawn_ray(it, trace.to_world(it, wi))
+    o2 = torch.where(hit.hit[:, None], o2, o).contiguous()
+    d2 = torch.where(hit.hit[:, None], d2, d).contiguous()
+    t2 = torch.where(hit.hit, INFINITY, 0.0).to(torch.float32)
+    idx = torch.zeros((n,), dtype=torch.int32, device=dev)  # the env light
+    ls = lights.sample_li(scene, cfg, idx, it.p, ub[:, 1:3])
+    so, sd, st = trace.shadow_ray(it, ls.target, ls.is_infinite)
+    st = torch.where(hit.hit & (ls.pdf > 0), st, 0.0).to(torch.float32)
+    return dict(camera=(o.contiguous(), d.contiguous(), t_inf),
+                bounce=(o2, d2, t2.contiguous()),
+                shadow=(so.contiguous(), sd.contiguous(), st.contiguous()))
+
+
+def compare_wide_hits(name, got, ref, t_max):
+    """compare_hits with the wide wrappers' miss record, b = (1, 0, 0)."""
+    return compare_hits(name, got, ref, t_max, miss_b=(1.0, 0.0, 0.0))
+
+
+def phase_wide_kernels(dev, scene, cam, cfg):
+    """Kernels 2 and 3 on the full-width tree: each against its plain walk,
+    then timed.  Returns (module, closest record, any-hit record)."""
+    from gnxraytracer_tpu_torch.kernels import wide_bvh as wb
+    from gnxraytracer_tpu_torch.ops import bvh as bvh_mod
+
+    pack = scene.bvh.wide
+    n_tri = int((pack.tid >= 0).sum())
+    check(n_tri == 104_882 and cfg.n_big == 2 and cfg.n_tris == 104_884,
+          f"unexpected tree: {n_tri} triangles in it, {cfg.n_big} outside")
+    rays = mesh_rays(dev, scene, cam, cfg)
+    n = rays["camera"][0].shape[0]
+    check(n == WIDTH * HEIGHT * SPP_CHUNK, "unexpected ray count")
+    sub = torch.arange(0, n, n // PLAIN_SUBSAMPLE, device=dev)[:PLAIN_SUBSAMPLE]
+
+    cases, visits, plain_ms = [], {}, {}
+    c0, a0 = wb.closest_launch_count, wb.any_launch_count
+    for name, (o, d, t) in rays.items():
+        # the whole 1M-ray set through the kernel, unsorted and sorted: the
+        # two must agree with each other everywhere, and with the plain walk
+        # on the sub-sample
+        so, sd, st = o[sub].contiguous(), d[sub].contiguous(), t[sub].contiguous()
+        if name != "shadow":
+            got = wb.wide_closest_hit(pack, o, d, t, sort=False)
+            got_s = wb.wide_closest_hit(pack, o, d, t, sort=True,
+                                        sort_key=cfg.sort_key)
+            torch.cuda.synchronize()
+            for f in got._fields:
+                check(torch.equal(getattr(got, f), getattr(got_s, f)),
+                      f"{name}: {f} depends on the coherence sort")
+            stats = {}
+            t0 = time.time()
+            ref = wb.wide_closest_hit_reference(pack, so, sd, st, stats=stats)
+            torch.cuda.synchronize()
+            plain_ms[name] = (time.time() - t0) * 1e3
+            got_sub = type(got)(*(x[sub] for x in got))
+            err = compare_wide_hits(name, got_sub, ref, st)
+            cases.append(dict(kernel="wide_closest_hit", case=name, n_rays=n,
+                              plain_on=f"a sub-sample of {len(sub)} rays",
+                              max_abs_err=err,
+                              hit_fraction=float(got.hit.float().mean())))
+        else:
+            got = wb.wide_any_hit(pack, o, d, t, sort=False)
+            got_s = wb.wide_any_hit(pack, o, d, t, sort=True,
+                                    sort_key=cfg.sort_key)
+            torch.cuda.synchronize()
+            check(torch.equal(got, got_s), "shadow: occ depends on the sort")
+            stats = {}
+            t0 = time.time()
+            ref = wb.wide_any_hit_reference(pack, so, sd, st, stats=stats)
+            torch.cuda.synchronize()
+            plain_ms[name] = (time.time() - t0) * 1e3
+            check(torch.equal(got[sub], ref),
+                  f"shadow: occ differs on {int((got[sub] != ref).sum())} lanes")
+            check(not bool(got[t <= 0].any()), "shadow: a dead lane is occluded")
+            check(int(ref.sum()) > 0, "shadow: no ray is occluded")
+            cases.append(dict(kernel="wide_any_hit", case=name, n_rays=n,
+                              plain_on=f"a sub-sample of {len(sub)} rays",
+                              max_abs_err=0.0,
+                              occluded_fraction=float(got.float().mean())))
+        visits[name] = {k: v * (n / len(sub)) for k, v in stats.items()}
+
+    # a ragged count, dead lanes and t_max cut short, all rays through both
+    # (every 9th lane: the first rows of the image see only sky)
+    o, d, t = (x[::9][:100_003].clone() for x in rays["bounce"])
+    check(o.shape[0] == 100_003, "unexpected ragged ray count")
+    t[1::4] = 1.5
+    t[2::8] = 0.0
+    got = wb.wide_closest_hit(pack, o, d, t)
+    ref = wb.wide_closest_hit_reference(pack, o, d, t)
+    cases.append(dict(kernel="wide_closest_hit", case="ragged+dead+t_max",
+                      n_rays=100_003, plain_on="all rays",
+                      max_abs_err=compare_wide_hits("ragged", got, ref, t)))
+    check(bool((got.t[got.hit] <= t[got.hit]).all()), "ragged: t beyond t_max")
+    occ = wb.wide_any_hit(pack, o, d, t)
+    check(torch.equal(occ, wb.wide_any_hit_reference(pack, o, d, t)),
+          "ragged: occ differs")
+    check(torch.equal(occ, got.hit),
+          "ragged: any hit and closest hit disagree on which rays hit")
+    cases.append(dict(kernel="wide_any_hit", case="ragged+dead+t_max",
+                      n_rays=100_003, plain_on="all rays", max_abs_err=0.0))
+
+    # the shared diagonal of a two-triangle quad, through its own tree
+    e_soa, e_o, e_d, e_t = shared_edge(dev)
+    quad_v = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]], np.float32)
+    quad_t = np.asarray([[0, 1, 2], [1, 3, 2]], np.int32)
+    quad = bvh_mod.build_bvh(quad_v, quad_t, device=dev).wide
+    e_got = wb.wide_closest_hit(quad, e_o, e_d, e_t)
+    check(bool(e_got.hit.all()),
+          f"{int((~e_got.hit).sum())} rays leaked through the shared edge")
+    check(bool(wb.wide_any_hit(quad, e_o, e_d, e_t).all()),
+          "any hit: rays leaked through the shared edge")
+    cases.append(dict(kernel="wide_closest_hit", case="shared-edge",
+                      n_rays=500, plain_on="all rays",
+                      max_abs_err=compare_wide_hits(
+                          "shared-edge", e_got,
+                          wb.wide_closest_hit_reference(quad, e_o, e_d, e_t),
+                          e_t)))
+    check(wb.closest_launch_count > c0 and wb.any_launch_count > a0,
+          "a wrapper did not count its launches")
+    emit({"phase": "wide_kernel_vs_plain", "tolerance": {
+        "hit": "identical", "occ": "identical", "tri": "identical",
+        "t_rtol": T_RTOL, "b_atol": B_ATOL}, "tree": {
+        "triangles": n_tri, "wide_nodes": int(pack.rec.shape[0]),
+        "leaf_rows": int(pack.leafs.shape[0]), "stack_size": pack.stack_size},
+        "cases": cases})
+
+    # isolated-cast times (L2 flushed before each launch): the kernel alone
+    # on the rays as they come, the kernel alone on the same rays in
+    # coherence order (what the main path launches), and the whole wrapper
+    # (sort, gathers, kernel, scatter back)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    times = {}
+    for name, (o, d, t) in rays.items():
+        fn = wb.wide_any_hit if name == "shadow" else wb.wide_closest_hit
+        perm, _ = bvh_mod.ray_sort_perm(
+            o, d, pack.frame[0:3], pack.frame[0:3] + 255.0 * pack.frame[3:6],
+            t_max=t, key_mode=cfg.sort_key)
+        os_, ds_, ts_ = o[perm].contiguous(), d[perm].contiguous(), t[perm].contiguous()
+        times[name] = dict(
+            unsorted_ms=time_cuda(lambda: fn(pack, o, d, t, sort=False), 10, flush),
+            sorted_ms=time_cuda(lambda: fn(pack, os_, ds_, ts_, sort=False), 10, flush),
+            wrapper_ms=time_cuda(
+                lambda: fn(pack, o, d, t, sort=True, sort_key=cfg.sort_key),
+                10, flush),
+            alive_fraction=float((t > 0).float().mean()))
+    emit({"phase": "wide_kernel_times", "n_rays": n, "times": times,
+          "plain_ms_on_subsample": plain_ms, "subsample": len(sub),
+          "visits_scaled_to_n_rays": visits})
+
+    def record(name, entry, out_bytes, case):
+        v = visits[case]
+        bound_ms, bound_by, bytes_ms, ops_ms = bound(
+            n * (28 + out_bytes),
+            v["node_visits"] * 8 * OPS_PER_SLAB
+            + v["leaf_visits"] * 4 * OPS_PER_PAIR)
+        errs = [c["max_abs_err"] for c in cases if c["kernel"] == name]
+        return dict(
+            name=name, route="cuda",
+            source="gnxraytracer_tpu_torch/csrc/wide_bvh.cu",
+            replaces="gnxraytracer_tpu/ops/pallas_wbvh.py:445",
+            launches=None, max_abs_err=max(errs),
+            ms=times[case]["sorted_ms"], plain_ms=plain_ms[case],
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            shape={"n_rays": n, "rays": case, "entry": entry,
+                   "plain_n_rays": len(sub)},
+            bytes_ms=bytes_ms, ops_ms=ops_ms,
+            ms_unsorted=times[case]["unsorted_ms"],
+            ms_wrapper_with_sort=times[case]["wrapper_ms"],
+            node_visits=v["node_visits"], leaf_visits=v["leaf_visits"])
+
+    return (wb, record("wide_closest_hit", "gnx_wide_closest_hit", 21, "bounce"),
+            record("wide_any_hit", "gnx_wide_any_hit", 1, "shadow"))
+
+
+# ---------------------------------------------------------------------------
+# phases 4 to 6: the two main paths and the golden image
 # ---------------------------------------------------------------------------
 
 def main_path_setup(dev):
@@ -280,7 +553,13 @@ def main_path_setup(dev):
     return scene, cam, cfg, samplers.make_sobol_sampler(SPP, device=dev)
 
 
-def phase_main_path(dev, ch):
+def reset_counts(ch, wb):
+    ch.reset_launch_count()
+    wb.reset_launch_counts()
+
+
+def phase_main_path(dev, ch, wb):
+    """The Cornell main path.  Returns the closest_hit kernel's launches."""
     from gnxraytracer_tpu_torch import cli
     from gnxraytracer_tpu_torch.models.integrators import path
 
@@ -292,7 +571,7 @@ def phase_main_path(dev, ch):
     torch.cuda.synchronize()
     rays_per_path = float(n_rays) / lanes
 
-    ch.reset_launch_count()
+    reset_counts(ch, wb)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     img = path.render(scene, cam, smp, cfg)
@@ -303,11 +582,14 @@ def phase_main_path(dev, ch):
     casts = chunks * (MAX_DEPTH + 1)  # one closest-hit cast per bounce
     check(launches == casts,
           f"kernel launches {launches} != closest-hit casts {casts}")
+    check(wb.closest_launch_count == 0 and wb.any_launch_count == 0,
+          "the Cornell path launched a wide-BVH kernel")
     check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {img.shape}")
     check(bool(torch.isfinite(img).all()), "the image is not finite")
     mean = float(img.mean())
     check(0.05 < mean < 5.0, f"image mean {mean}: black or blown out")
-    emit({"phase": "main_path", "entry": "path.render", "width": WIDTH,
+    emit({"phase": "main_path", "scene": "cornell", "entry": "path.render",
+          "width": WIDTH,
           "height": HEIGHT, "max_depth": MAX_DEPTH, "spp": SPP,
           "lanes_per_chunk": lanes, "chunks": chunks,
           "kernel_launches": launches, "closest_hit_casts": casts,
@@ -327,24 +609,166 @@ def phase_main_path(dev, ch):
     check(cli_launches == 6, f"CLI: {cli_launches} kernel launches, expected 6")
     check(cli_img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(cli_img).all()
           and cli_img.mean() > 0.05, "CLI: bad image")
-    emit({"phase": "main_path", "entry": "cli render",
+    emit({"phase": "main_path", "scene": "cornell", "entry": "cli render",
           "kernel_launches": cli_launches, "image_mean": float(cli_img.mean())})
     return ch.launch_count
 
 
-def phase_profile(dev):
-    """Where one 1M-lane chunk of the main path spends its time: device-busy
-    share and the top kernels by device time (torch.profiler), and the plain
-    any-hit shadow cast timed alone."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+@contextlib.contextmanager
+def casts_unsorted(wb):
+    """The wide-BVH wrappers with their coherence sort off (a measurement
+    aid: the render configuration has no such switch)."""
+    closest, any_hit = wb.wide_closest_hit, wb.wide_any_hit
+    wb.wide_closest_hit = functools.partial(closest, sort=False)
+    wb.wide_any_hit = functools.partial(any_hit, sort=False)
+    try:
+        yield
+    finally:
+        wb.wide_closest_hit, wb.wide_any_hit = closest, any_hit
+
+
+def timed_chunk(path, scene, cam, smp, cfg, start):
+    t0 = time.time()
+    img, _ = path.render_chunk(scene, cam, smp, cfg, start, SPP_CHUNK)
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3, img
+
+
+def phase_mesh_path(dev, ch, wb, setup, tmp):
+    """The mesh main path.  Returns the launches of (wide_closest_hit,
+    wide_any_hit) in path.render."""
+    from gnxraytracer_tpu_torch import cli
+    from gnxraytracer_tpu_torch.models.integrators import path
+
+    scene, cam, cfg, smp, build_s = setup
+    lanes = WIDTH * HEIGHT * SPP_CHUNK
+    check(cfg.use_bvh and cfg.bvh_mode == "pallas" and cfg.has_env
+          and cfg.has_textures and not cfg.has_skybox,
+          f"unexpected mesh configuration {cfg}")
+
+    # warm-up chunk (also gives the useful casts per path)
+    _, n_rays = path.render_chunk(scene, cam, smp, cfg, 0, SPP_CHUNK)
+    torch.cuda.synchronize()
+    rays_per_path = float(n_rays) / lanes
+    check(1.0 < rays_per_path < 6.0, f"rays per path {rays_per_path}")
+
+    reset_counts(ch, wb)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    img = path.render(scene, cam, smp, cfg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = (wb.closest_launch_count, wb.any_launch_count)
+    chunks = SPP // SPP_CHUNK
+    # one closest-hit cast at the camera and one after every work, one shadow
+    # cast per work, in every chunk
+    per_chunk = path.pipelined_cast_counts(cfg, lanes)
+    check(per_chunk == (MAX_DEPTH + 1, MAX_DEPTH), f"cast counts {per_chunk}")
+    want = (chunks * per_chunk[0], chunks * per_chunk[1])
+    check(launches == want, f"wide kernel launches {launches} != casts {want}")
+    check(ch.launch_count == 0, "the mesh path launched the brute-force kernel")
+    check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {img.shape}")
+    check(bool(torch.isfinite(img).all()), "the mesh image is not finite")
+    mean = float(img.mean())
+    check(0.02 < mean < 50.0, f"mesh image mean {mean}: black or blown out")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # the same chunk with the coherence sort on and off, in turns (on, off,
+    # off, on), three rounds: the chunk is bound by the host, whose times
+    # spread, so the medians are what to compare
+    sort_on, sort_off = [], []
+    for _ in range(3):
+        ms, img_on = timed_chunk(path, scene, cam, smp, cfg, 4)
+        sort_on.append(ms)
+        with casts_unsorted(wb):
+            ms, img_off = timed_chunk(path, scene, cam, smp, cfg, 4)
+            sort_off.append(ms)
+            sort_off.append(timed_chunk(path, scene, cam, smp, cfg, 4)[0])
+        sort_on.append(timed_chunk(path, scene, cam, smp, cfg, 4)[0])
+        check(torch.equal(img_on, img_off),
+              "the image depends on the coherence sort")
+    emit({"phase": "main_path", "scene": "envmap_mesh", "entry": "path.render",
+          "width": WIDTH, "height": HEIGHT, "max_depth": MAX_DEPTH, "spp": SPP,
+          "triangles": cfg.n_tris, "compact_stages": MESH_STAGES,
+          "lanes_per_chunk": lanes, "chunks": chunks,
+          "bvh_build_s": build_s,
+          "kernel_launches": {"wide_closest_hit": launches[0],
+                              "wide_any_hit": launches[1]},
+          "casts_per_chunk": {"closest": per_chunk[0], "shadow": per_chunk[1]},
+          "rays_per_path": rays_per_path, "ms_per_chunk": wall / chunks * 1e3,
+          "Mpaths_per_s": WIDTH * HEIGHT * SPP / wall / 1e6,
+          "image_mean": mean, "peak_device_MiB": peak,
+          "chunk_ms_sort_on": sort_on, "chunk_ms_sort_off": sort_off,
+          "chunk_ms_sort_on_median": float(np.median(sort_on)),
+          "chunk_ms_sort_off_median": float(np.median(sort_off))})
+
+    # the CLI a user would call; it takes no HDR path, so without the
+    # reference renderer's assets the preset falls back to its skybox
+    reset_counts(ch, wb)
+    with tempfile.TemporaryDirectory() as out_dir:
+        out = os.path.join(out_dir, "cli.npy")
+        cli.main(["render", "--preset", "envmap", "--sampler", "sobol",
+                  "--fast-mis", "--spp", "4", "--max-depth", str(MAX_DEPTH),
+                  "--out-npy", out])
+        cli_img = np.load(out)
+    cli_launches = (wb.closest_launch_count, wb.any_launch_count)
+    # the CLI's configuration runs the classic loop: one closest-hit and one
+    # shadow cast per bounce
+    check(cli_launches == (MAX_DEPTH + 1, MAX_DEPTH + 1),
+          f"CLI: wide kernel launches {cli_launches}")
+    check(cli_img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(cli_img).all()
+          and cli_img.mean() > 0.02, "CLI: bad mesh image")
+    emit({"phase": "main_path", "scene": "envmap_mesh", "entry": "cli render",
+          "environment": "skybox fallback (no HDR asset)",
+          "kernel_launches": {"wide_closest_hit": cli_launches[0],
+                              "wide_any_hit": cli_launches[1]},
+          "image_mean": float(cli_img.mean())})
+
+    # kernels against the plain walk through the whole path, at 64x64: this
+    # stands in for the reference renderer's mesh golden, whose assets are
+    # not in the repository
+    s64 = mesh_setup(dev, tmp, 64, 64, spp=4)
+    img_k = path.render(s64[0], s64[1], s64[3], s64[2])
+    img_p = path.render(s64[0], s64[1], s64[3],
+                        s64[2]._replace(bvh_mode="packet"))
+    torch.cuda.synchronize()
+    close = torch.isclose(img_k, img_p, rtol=1e-4, atol=1e-6)
+    emit({"phase": "cross_check", "what": "64x64, 4 spp, depth 8: "
+          "bvh_mode='pallas' (kernels) against 'packet' (plain walk)",
+          "rtol": 1e-4, "pixels_differing": int((~close.all(-1)).sum()),
+          "max_abs_diff": float((img_k - img_p).abs().max()),
+          "image_mean": float(img_k.mean())})
+    check(bool(close.all()), "cross-check: the kernels' image differs from "
+          "the plain walk's")
+    return launches
+
+
+def count_dispatched_ops(fn):
+    """How many operators PyTorch dispatches (views included) while fn()
+    runs."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from gnxraytracer_tpu_torch.constants import INFINITY
-    from gnxraytracer_tpu_torch.models.integrators import path
-    from gnxraytracer_tpu_torch.ops import samplers, trace
+    class OpCount(TorchDispatchMode):
+        n = 0
 
-    scene, cam, cfg, smp = main_path_setup(dev)
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with OpCount() as counter:
+        fn()
+    torch.cuda.synchronize()
+    return counter.n
+
+
+def profile_chunk(label, scene, cam, cfg, smp):
+    """Where one 1M-lane chunk spends its time: device-busy share, the top
+    kernels by device time (torch.profiler) and the operators dispatched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnxraytracer_tpu_torch.models.integrators import path
+
     path.render_chunk(scene, cam, smp, cfg, 0, SPP_CHUNK)
     torch.cuda.synchronize()
     t0 = time.time()
@@ -353,7 +777,7 @@ def phase_profile(dev):
     wall_plain = (time.time() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        path.render_chunk(scene, cam, smp, cfg, 8, SPP_CHUNK)
+        path.render_chunk(scene, cam, smp, cfg, 4, SPP_CHUNK)
         torch.cuda.synchronize()
         wall_prof = (time.time() - t0) * 1e3
     # kernel-level events only: an operator's row repeats the device time of
@@ -363,39 +787,44 @@ def phase_profile(dev):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    _, o, d, alive = main_path_rays(dev)
-    t_all = torch.full((o.shape[0],), INFINITY, dtype=torch.float32, device=dev)
-    any_ms = time_cuda(lambda: trace.scene_occluded(scene, cfg, o, d, t_all), 3)
-
-    class OpCount(TorchDispatchMode):
-        """Counts the operators PyTorch dispatches (views included)."""
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
-
-    with OpCount() as chunk_ops:
-        path.render_chunk(scene, cam, smp, cfg, 12, SPP_CHUNK)
-    with OpCount() as shadow_ops:
-        trace.scene_occluded(scene, cfg, o, d, t_all)
-    with OpCount() as dims_ops:
-        samplers.sample_bounce_dims(smp, torch.zeros_like(alive, dtype=torch.int32),
-                                    torch.zeros_like(alive, dtype=torch.int32),
-                                    5, 8, 85)
-    torch.cuda.synchronize()
-    emit({"phase": "profile", "chunk_wall_ms": wall_plain,
+    chunk_ops = count_dispatched_ops(
+        lambda: path.render_chunk(scene, cam, smp, cfg, 4, SPP_CHUNK))
+    ours = [r for r in rows if "closest_hit_kernel" in r[0]
+            or "wide_bvh_kernel" in r[0]]
+    emit({"phase": "profile", "scene": label, "chunk_wall_ms": wall_plain,
           "chunk_wall_ms_profiled": wall_prof,
           "device_busy_ms": busy if rows else "not measured",
           # against the unprofiled wall time: the profiler slows the host
           "device_idle_share": (1.0 - busy / wall_plain) if rows else "not measured",
           "kernel_launches_in_chunk": sum(r[2] for r in rows),
+          "dispatched_ops_in_chunk": chunk_ops,
+          "hand_written_kernels": [{"name": k[:80], "ms": ms, "count": c}
+                                   for k, ms, c in ours],
           "top_kernels": [{"name": k[:80], "ms": ms, "count": c}
-                          for k, ms, c in rows[:12]],
+                          for k, ms, c in rows[:12]]})
+
+
+def phase_profile(dev, mesh):
+    """torch.profiler breakdown of one chunk of each main path, and the
+    plain pieces of the Cornell chunk timed or counted alone."""
+    from gnxraytracer_tpu_torch.constants import INFINITY
+    from gnxraytracer_tpu_torch.ops import samplers, trace
+
+    scene, cam, cfg, smp = main_path_setup(dev)
+    profile_chunk("cornell", scene, cam, cfg, smp)
+    _, o, d, alive = main_path_rays(dev)
+    t_all = torch.full((o.shape[0],), INFINITY, dtype=torch.float32, device=dev)
+    any_ms = time_cuda(lambda: trace.scene_occluded(scene, cfg, o, d, t_all), 3)
+    shadow_ops = count_dispatched_ops(
+        lambda: trace.scene_occluded(scene, cfg, o, d, t_all))
+    zeros = torch.zeros_like(alive, dtype=torch.int32)
+    dims_ops = count_dispatched_ops(
+        lambda: samplers.sample_bounce_dims(smp, zeros, zeros, 5, 8, 85))
+    emit({"phase": "profile", "scene": "cornell, pieces alone",
           "plain_any_hit_1M_rays_ms": any_ms,
-          "dispatched_ops": {"chunk": chunk_ops.n,
-                             "one_shadow_cast": shadow_ops.n,
-                             "one_bounce_sampler_dims": dims_ops.n}})
+          "dispatched_ops": {"one_shadow_cast": shadow_ops,
+                             "one_bounce_sampler_dims": dims_ops}})
+    profile_chunk("envmap_mesh", *mesh[:4])
 
 
 def phase_golden(dev):
@@ -435,6 +864,7 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     try:
+        from gnxraytracer_tpu_torch import native
         from gnxraytracer_tpu_torch.kernels import build
     except ImportError as e:
         print(f"chip_smoke: the package gnxraytracer_tpu_torch is not beside "
@@ -452,9 +882,15 @@ def main():
         names = sorted(f[:-3] for f in os.listdir(build.CSRC_DIR)
                        if f.endswith(".cu"))
         handles = [build.start_build(n) for n in names]  # all nvcc at once
+        t0 = time.time()
+        native.get_lib()  # g++, while nvcc runs
+        native_s = time.time() - t0
         for hd in handles:
             build.finish_build(hd)
         emit({"phase": "build", "nvcc": build.find_nvcc(),
+              "native_bvh_builder": {"compiler": "g++",
+                                     "flags": " ".join(native.GXX_FLAGS),
+                                     "seconds": native_s},
               "flags": " ".join(build.NVCC_FLAGS),
               "sources": {n: {"seconds": build.build_log[n]["seconds"],
                               "cached": build.build_log[n]["cached"],
@@ -462,10 +898,18 @@ def main():
                           for n in names}})
 
         ch, record = phase_kernels(dev)
-        record["launches"] = phase_main_path(dev, ch)
-        check(record["launches"] > 0, "the main path never launched the kernel")
-        if "--profile" in sys.argv[1:]:
-            phase_profile(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh = mesh_setup(dev, tmp)
+            wb, rec_closest, rec_any = phase_wide_kernels(dev, *mesh[:3])
+            record["launches"] = phase_main_path(dev, ch, wb)
+            rec_closest["launches"], rec_any["launches"] = phase_mesh_path(
+                dev, ch, wb, mesh, tmp)
+            records = [record, rec_closest, rec_any]
+            for r in records:
+                check(r["launches"] > 0,
+                      f"a main path never launched the kernel {r['name']}")
+            if "--profile" in sys.argv[1:]:
+                phase_profile(dev, mesh)
         phase_golden(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -473,7 +917,7 @@ def main():
 
     emit({"phase": "done", "seconds": time.time() - t_start})
     print(smi, flush=True)
-    emit({"kernels": [record]})
+    emit({"kernels": records})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,12 +3,16 @@ per-chunk stats (frame time / FPS / Mpaths/s), PNG export with the
 reference tonemap, and checkpoint/resume of the linear accumulation state.
 
 Runs on the CUDA device unless ``--cpu`` is given; without a CUDA device
-and without ``--cpu`` it stops with an error.  On a CUDA device the
-brute-force cast goes through the hand-written kernel (use_pallas=True).
+and without ``--cpu`` it stops with an error.  On a CUDA device the casts
+go through the hand-written kernels: the brute-force closest hit
+(use_pallas=True) and, for the presets with a BVH, the wide-BVH closest-hit
+and any-hit kernels (bvh_mode="pallas").
 
 Usage:
   python -m gnxraytracer_tpu_torch.cli render --preset cornell \\
       --sampler sobol --fast-mis --spp 64 --out out.png [--cpu]
+  python -m gnxraytracer_tpu_torch.cli render --preset envmap \\
+      --sampler sobol --fast-mis --max-depth 8 --spp 64 --out mesh.png
   python -m gnxraytracer_tpu_torch.cli presets
 """
 
@@ -29,7 +33,7 @@ PRESETS = {
     "metal": "Cornell + the reference app's Metal/Plastic presets (parity twin)",
     "gridvol": "Cornell + GridDensityMedium from density_render.70.volume",
 }
-PORTED_PRESETS = ("cornell", "sphere")
+PORTED_PRESETS = ("cornell", "cornell-mesh", "sphere", "envmap")
 
 
 def build_preset(name, width, height, device):
@@ -37,8 +41,15 @@ def build_preset(name, width, height, device):
 
     if name == "cornell":
         return presets.cornell_box(width, height, device=device)
+    if name == "cornell-mesh":
+        from .scene.loaders import make_test_mesh
+
+        return presets.cornell_box(width, height, mesh=make_test_mesh(5),
+                                   bvh=True, device=device)
     if name == "sphere":
         return presets.sphere_point_light(width, height, device=device)
+    if name == "envmap":
+        return presets.envmap_mesh(width, height, device=device)
     if name in PRESETS:
         raise SystemExit(
             f"preset {name!r} is not ported to PyTorch yet; ported presets: "

@@ -13,7 +13,8 @@ import torch
 from .models.integrators.path import RenderCfg
 from .ops.samplers import Sampler
 from .scene.camera import Camera
-from .scene.scene import Geometry, LightTable, MaterialTable, Scene
+from .ops.bvh import bvh_from_numpy
+from .scene.scene import EnvMap, Geometry, LightTable, MaterialTable, Scene
 from .utils.device import resolve_device
 
 
@@ -33,22 +34,47 @@ def _table(cls, src, dev):
 def scene_from_numpy(tree, device="cuda"):
     """JAX-package Scene (numpy leaves) -> the port's Scene."""
     dev = resolve_device(device)
-    for field in ("env", "textures", "media", "bvh", "light_dist", "instanced",
-                  "big_tri_idx"):
+    for field in ("media", "light_dist", "instanced"):
         if getattr(tree, field, None) is not None:
             raise NotImplementedError(
                 f"scene.{field} is not ported yet and cannot be carried across")
+    env = None
+    if tree.env is not None:
+        # the inverse-CDF jump table is a TPU device and is not carried
+        env = EnvMap(**{f: (None if f == "cond_inv"
+                            else _tensor(getattr(tree.env, f), dev))
+                        for f in EnvMap._fields})
+    textures = None
+    if tree.textures is not None:
+        textures = tuple(_tensor(a, dev) for a in tree.textures)
     return Scene(
         geom=_table(Geometry, tree.geom, dev),
         materials=_table(MaterialTable, tree.materials, dev),
         lights=_table(LightTable, tree.lights, dev),
-        env=None, textures=None, media=None,
+        env=env, textures=textures, media=None,
         camera_medium=int(tree.camera_medium),
         world_center=_tensor(tree.world_center, dev),
         world_radius=_tensor(tree.world_radius, dev),
-        bvh=None,
+        bvh=None if tree.bvh is None else bvh_from_numpy_tree(tree.bvh, dev),
         light_pmf=_tensor(tree.light_pmf, dev),
+        big_tri_idx=_tensor(tree.big_tri_idx, dev),
     )
+
+
+def bvh_from_numpy_tree(bvh, device="cuda"):
+    """JAX-package BVH (numpy leaves) -> the port's BVH.  The binary tables
+    carry across as they are; the width-8 table the port walks is made from
+    them (ops/wbvh.build_wide_pack), so both packages walk the same tree.
+    The JAX package's treelet tables exist to fit the TPU's fast memory and
+    are not carried."""
+    if bvh.first8 is None:
+        raise NotImplementedError(
+            "a BVH without octant links (the LBVH build) is not ported yet")
+    return bvh_from_numpy(
+        *(np.asarray(getattr(bvh, f)) for f in (
+            "bounds_lo", "bounds_hi", "offset", "n_prims", "axis", "prim_idx",
+            "miss", "leaf_soa", "first8", "miss8")),
+        device=device)
 
 
 def camera_from_numpy(cam, device="cuda"):

@@ -2,14 +2,16 @@
 a plain C interface and loads them with ctypes.
 
 A library is built at first use into ``gnxraytracer_tpu_torch/build/`` (not
-under version control) and named after a hash of its source and flags, so an
-edited source is rebuilt and a finished build is reused.  Nothing here runs
-when the package is imported.
+under version control) and named after a hash of its source, of every file
+under csrc/ that the source includes, and of the flags, so an edited source
+or header is rebuilt and a finished build is reused.  Nothing here runs when
+the package is imported.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,10 +39,33 @@ def find_nvcc():
                        "(set NVCC or CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name):
+    """csrc/<name>.cu and, transitively, the files under csrc/ it includes
+    with quotes, in a fixed order."""
+    todo, seen = [name + ".cu"], []
+    while todo:
+        rel = todo.pop()
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            inc = inc.decode()
+            if os.path.isfile(os.path.join(CSRC_DIR, inc)):
+                todo.append(inc)
+    return [os.path.join(CSRC_DIR, rel) for rel in sorted(seen)]
+
+
 def _target(name):
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return src, os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

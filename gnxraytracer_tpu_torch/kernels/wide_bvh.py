@@ -1,0 +1,297 @@
+"""Closest hit and any hit over the width-8 BVH: the wrappers of the CUDA
+kernels in csrc/wide_bvh.cu, and the plain PyTorch versions beside them.
+
+The kernels replace the two modes of the JAX package's TPU kernel
+ops/pallas_wbvh.py::_make_wide_kernel (see the note in the .cu file for what
+bounds them on an H100 and what the design does about it).  On CUDA tensors
+``wide_closest_hit`` / ``wide_any_hit`` launch the kernel or raise; on CPU
+tensors they run ``wide_closest_hit_reference`` / ``wide_any_hit_reference``,
+which are also what the kernels are held against on the card.
+
+The plain versions walk the SAME packed table (ops/wbvh.WidePack) in
+lockstep: every lane keeps its own stack in an (N, S) tensor and each step
+pops one entry per live lane, a node (8 quantized child boxes, slab test,
+push far to near in the order word of the lane's own direction octant) or a
+leaf row (LEAF_SIZE watertight tests in row order, strict t < t_best).  A
+lane's sequence of visits is exactly a kernel thread's, so ties in t go to
+the same triangle in both.
+"""
+
+import ctypes
+
+import torch
+
+from ..constants import INFINITY
+from ..ops.bvh import LEAF_SIZE, ray_sort_perm
+from ..ops.intersect import TriHit, _permute_shear, _watertight_one
+from ..ops.wbvh import BOUND_WORDS, ORDER_WORD0, REC_WORDS, TARGET_WORD0, WIDTH
+from . import build
+from .closest_hit import _check
+
+# launches of each CUDA kernel (and nothing else) since the last reset
+closest_launch_count = 0
+any_launch_count = 0
+
+# far side of the slab widened by gamma(3)-sized slop, as in the JAX package
+_SLAB_WIDEN = 1.0 + 2.0 * 7.2e-7
+
+
+def reset_launch_counts():
+    global closest_launch_count, any_launch_count
+    closest_launch_count = 0
+    any_launch_count = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _safe_inv(v):
+    tiny = torch.where(v < 0, -1e-20, 1e-20)
+    return 1.0 / torch.where(torch.abs(v) < 1e-20, tiny, v)
+
+
+def _walk(pack, o, d, t_max, any_hit, stats=None):
+    """The lockstep walk both plain versions share.  Returns (t_best, tri,
+    u, v, found); tri = -1 where nothing was found."""
+    n = o.shape[0]
+    dev = o.device
+    cap = pack.stack_size
+    rec = pack.rec
+    f_lo = torch.cat([pack.frame[0:3], pack.frame[0:3]])[None, :, None]
+    f_sc = torch.cat([pack.frame[3:6], pack.frame[3:6]])[None, :, None]
+    # byte s%4 of word 2k + s//4 is component k of slot s
+    slot = torch.arange(WIDTH, device=dev)
+    word_of = (2 * torch.arange(6, device=dev)[:, None] + slot[None, :] // 4)
+    shift_of = (8 * (slot % 4))[None, None, :]
+
+    inv = _safe_inv(d)
+    neg = (d < 0).to(torch.int64)
+    octant = neg[:, 0] | (neg[:, 1] << 1) | (neg[:, 2] << 2)
+    (m0, m1), (sx, sy, sz) = _permute_shear(d)
+
+    t_best = t_max.to(torch.float32).clone()
+    tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    found = torch.zeros((n,), dtype=torch.bool, device=dev)
+    stack = torch.zeros((n, cap), dtype=torch.int32, device=dev)  # root = 0
+    sp = (t_best > 0).to(torch.int64)  # dead lanes never start
+
+    node_visits = leaf_visits = 0
+    while True:
+        live = torch.nonzero(sp > 0)[:, 0]
+        if live.numel() == 0:
+            break
+        top = sp[live] - 1
+        entry = stack[live, top]
+        sp[live] = top
+        is_leaf = entry < 0
+
+        ni = live[~is_leaf]
+        if ni.numel():
+            node_visits += int(ni.numel())
+            r = rec[entry[~is_leaf].long()]                       # (M, 32)
+            words = r[:, :BOUND_WORDS].to(torch.int64) & 0xFFFFFFFF
+            q = (words[:, word_of] >> shift_of) & 255             # (M, 6, 8)
+            box = f_lo + q.to(torch.float32) * f_sc
+            oo = o[ni][:, :, None]
+            ii = inv[ni][:, :, None]
+            t0 = (box[:, 0:3] - oo) * ii
+            t1 = (box[:, 3:6] - oo) * ii
+            tn = torch.amax(torch.minimum(t0, t1), dim=1)          # (M, 8)
+            tf = torch.amin(torch.maximum(t0, t1), dim=1) * _SLAB_WIDEN
+            tb = t_best[ni][:, None]
+            tg = r[:, TARGET_WORD0:TARGET_WORD0 + WIDTH]
+            want = ((tn <= tf) & (tf > 0) & (tn < tb) & (tb > 0) & (tg != 0))
+            rows = torch.arange(ni.numel(), device=dev)
+            order = r[rows, ORDER_WORD0 + octant[ni]].to(torch.int64) & 0xFFFFFFFF
+            for j in range(WIDTH - 1, -1, -1):  # far to near
+                sl = ((order >> (3 * j)) & 7)[:, None]
+                push = want.gather(1, sl)[:, 0]
+                lanes = ni[push]
+                if lanes.numel() == 0:
+                    continue
+                at = sp[lanes]
+                if bool((at >= cap).any()):
+                    raise RuntimeError(
+                        "wide BVH walk: traversal stack overflow (the pack's "
+                        f"stack_size {cap} is too small for its tree)")
+                stack[lanes, at] = tg.gather(1, sl)[:, 0][push]
+                sp[lanes] = at + 1
+
+        li = live[is_leaf]
+        if li.numel():
+            leaf_visits += int(li.numel())
+            row = (-entry[is_leaf].long() - 1)
+            lr = pack.leafs[row]                                   # (M, 36)
+            ids = pack.tid[row]                                    # (M, 4)
+            ol = o[li]
+            fr = (ol[:, 0], ol[:, 1], ol[:, 2], m0[li], m1[li],
+                  sx[li], sy[li], sz[li])
+            tb = t_best[li]
+            tri_l, u_l, v_l, found_l = tri[li], u[li], v[li], found[li]
+            for k in range(LEAF_SIZE):
+                c = 9 * k
+                valid, t, _b0, b1, b2 = _watertight_one(
+                    *fr, tb, (lr[:, c + 0], lr[:, c + 1], lr[:, c + 2]),
+                    (lr[:, c + 3], lr[:, c + 4], lr[:, c + 5]),
+                    (lr[:, c + 6], lr[:, c + 7], lr[:, c + 8]))
+                valid = valid & (ids[:, k] >= 0) & (t < tb)
+                found_l = found_l | valid
+                if not any_hit:
+                    tb = torch.where(valid, t, tb)
+                    tri_l = torch.where(valid, ids[:, k], tri_l)
+                    u_l = torch.where(valid, b1, u_l)
+                    v_l = torch.where(valid, b2, v_l)
+            found[li] = found_l
+            if any_hit:
+                sp[li[found_l]] = 0  # the first hit before t_max ends the walk
+            else:
+                t_best[li], tri[li], u[li], v[li] = tb, tri_l, u_l, v_l
+    if stats is not None:
+        stats["node_visits"] = stats.get("node_visits", 0) + node_visits
+        stats["leaf_visits"] = stats.get("leaf_visits", 0) + leaf_visits
+    return t_best, tri, u, v, found
+
+
+def _trihit(t, tri, u, v, found):
+    return TriHit(hit=found, t=torch.where(found, t, INFINITY),
+                  tri=torch.clamp(tri, min=0),
+                  b=torch.stack([1.0 - u - v, u, v], dim=-1))
+
+
+def wide_closest_hit_reference(pack, o, d, t_max, stats=None):
+    """Plain PyTorch version of the closest-hit kernel, any device.  stats:
+    an optional dict that gets the walk's node_visits and leaf_visits
+    (entries popped, summed over rays) added."""
+    return _trihit(*_walk(pack, o, d, t_max, any_hit=False, stats=stats))
+
+
+def wide_any_hit_reference(pack, o, d, t_max, stats=None):
+    """Plain PyTorch version of the any-hit kernel: (N,) bool."""
+    return _walk(pack, o, d, t_max, any_hit=True, stats=stats)[4]
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_fns = None
+
+
+def _kernel_fns():
+    global _fns
+    if _fns is None:
+        lib = build.load("wide_bvh")
+        p = ctypes.c_void_p
+        lib.gnx_wide_stack_cap.argtypes = []
+        lib.gnx_wide_stack_cap.restype = ctypes.c_int
+        lib.gnx_wide_closest_hit.argtypes = [p] * 11 + [ctypes.c_longlong, p]
+        lib.gnx_wide_closest_hit.restype = ctypes.c_int
+        lib.gnx_wide_any_hit.argtypes = [p] * 8 + [ctypes.c_longlong, p]
+        lib.gnx_wide_any_hit.restype = ctypes.c_int
+        _fns = (lib.gnx_wide_closest_hit, lib.gnx_wide_any_hit,
+                int(lib.gnx_wide_stack_cap()))
+    return _fns
+
+
+def _check_args(pack, o, d, t_max):
+    n = o.shape[0]
+    dev = o.device
+    f32, i32 = torch.float32, torch.int32
+    _check("o", o, (n, 3), f32, dev)
+    _check("d", d, (n, 3), f32, dev)
+    _check("t_max", t_max, (n,), f32, dev)
+    if pack.rec.ndim != 2 or pack.rec.shape[0] < 1:
+        raise ValueError("pack.rec must be (NW, 32) with NW >= 1")
+    _check("pack.rec", pack.rec, (pack.rec.shape[0], REC_WORDS), i32, dev)
+    _check("pack.frame", pack.frame, (8,), f32, dev)
+    rows = pack.leafs.shape[0]
+    _check("pack.leafs", pack.leafs, (rows, LEAF_SIZE * 9), f32, dev)
+    _check("pack.tid", pack.tid, (rows, LEAF_SIZE), i32, dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the wide BVH casts run on cuda or cpu tensors, not {dev}")
+    return n, dev
+
+
+def _sorted_rays(pack, o, d, t_max, sort, sort_key):
+    """Rays in coherence order (ops/bvh.ray_sort_perm over the pack's frame,
+    which spans the tree's bounds) and the inverse permutation."""
+    if not sort or o.shape[0] == 0:
+        return o, d, t_max, None
+    lo = pack.frame[0:3]
+    hi = lo + 255.0 * pack.frame[3:6]
+    perm, inv = ray_sort_perm(o, d, lo, hi, t_max=t_max, key_mode=sort_key)
+    return (o[perm].contiguous(), d[perm].contiguous(),
+            t_max[perm].contiguous(), inv)
+
+
+def _launch_ok(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _check_stack(pack, cap):
+    if pack.stack_size > cap:
+        raise ValueError(
+            f"the tree needs a traversal stack of {pack.stack_size} entries; "
+            f"the kernel is built with {cap}")
+
+
+def wide_closest_hit(pack, o, d, t_max, sort=True, sort_key="oct_morton"):
+    """Closest hit of N rays against the width-8 BVH table `pack`
+    (ops/wbvh.WidePack).
+
+    o, d: (N,3) float32; t_max: (N,) float32; all contiguous and on the
+    pack's device.  sort: cast the rays in coherence order (results do not
+    depend on it).  Returns TriHit(hit (N,) bool, t (N,) f32 — INFINITY on a
+    miss, tri (N,) i32 — 0 on a miss, b (N,3) f32 = (1-u-v, u, v))."""
+    n, dev = _check_args(pack, o, d, t_max)
+    o, d, t_max, inv = _sorted_rays(pack, o, d, t_max, sort, sort_key)
+    if dev.type == "cpu":
+        out = wide_closest_hit_reference(pack, o, d, t_max)
+    else:
+        fn, _, cap = _kernel_fns()
+        _check_stack(pack, cap)
+        out = TriHit(hit=torch.empty((n,), dtype=torch.bool, device=dev),
+                     t=torch.empty((n,), dtype=torch.float32, device=dev),
+                     tri=torch.empty((n,), dtype=torch.int32, device=dev),
+                     b=torch.empty((n, 3), dtype=torch.float32, device=dev))
+        if n > 0:
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                _launch_ok(fn(pack.rec.data_ptr(), pack.frame.data_ptr(),
+                              pack.leafs.data_ptr(), pack.tid.data_ptr(),
+                              o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+                              out.t.data_ptr(), out.tri.data_ptr(),
+                              out.b.data_ptr(), out.hit.data_ptr(), n, stream),
+                           "wide_closest_hit")
+                global closest_launch_count
+                closest_launch_count += 1
+    if inv is not None:
+        out = TriHit(*(x[inv] for x in out))
+    return out
+
+
+def wide_any_hit(pack, o, d, t_max, sort=True, sort_key="oct_morton"):
+    """Whether each of N rays hits anything before its t_max: (N,) bool.
+    Arguments as for wide_closest_hit."""
+    n, dev = _check_args(pack, o, d, t_max)
+    o, d, t_max, inv = _sorted_rays(pack, o, d, t_max, sort, sort_key)
+    if dev.type == "cpu":
+        occ = wide_any_hit_reference(pack, o, d, t_max)
+    else:
+        _, fn, cap = _kernel_fns()
+        _check_stack(pack, cap)
+        occ = torch.empty((n,), dtype=torch.bool, device=dev)
+        if n > 0:
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                _launch_ok(fn(pack.rec.data_ptr(), pack.frame.data_ptr(),
+                              pack.leafs.data_ptr(), pack.tid.data_ptr(),
+                              o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+                              occ.data_ptr(), n, stream), "wide_any_hit")
+                global any_launch_count
+                any_launch_count += 1
+    return occ if inv is None else occ[inv]

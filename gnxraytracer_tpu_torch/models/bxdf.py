@@ -41,6 +41,30 @@ def fr_dielectric(cos_theta_i, eta_i, eta_t):
     return torch.where(tir, 1.0, fr)
 
 
+def fr_conductor(cos_theta_i, eta_i, eta_t, k):
+    """Conductor Fresnel with complex IOR, per channel.
+
+    cos_theta_i: (...,); eta_i/eta_t/k: (..., 3). Returns (..., 3).
+    """
+    ci = torch.clamp(torch.abs(cos_theta_i), 0.0, 1.0)[..., None]
+    eta = eta_t / eta_i
+    etak = k / eta_i
+    cos2 = ci * ci
+    sin2 = 1.0 - cos2
+    eta2 = eta * eta
+    etak2 = etak * etak
+    t0 = eta2 - etak2 - sin2
+    a2b2 = torch.sqrt(torch.clamp(t0 * t0 + 4.0 * eta2 * etak2, min=0.0))
+    t1 = a2b2 + cos2
+    a = torch.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=0.0))
+    t2 = 2.0 * a * ci
+    rs = (t1 - t2) / (t1 + t2)
+    t3 = cos2 * a2b2 + sin2 * sin2
+    t4 = t2 * sin2
+    rp = rs * (t3 - t4) / (t3 + t4)
+    return 0.5 * (rp + rs)
+
+
 def schlick_fresnel(cos_t, r0):
     m = torch.clamp(1.0 - cos_t, 0.0, 1.0)
     m2 = m * m

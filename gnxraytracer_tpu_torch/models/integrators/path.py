@@ -14,8 +14,10 @@ estimation — two scene casts per bounce:
   * Russian roulette: q = max(.05, 1 - maxComp(beta*etaScale)) when
     maxComp < rrThreshold and bounces > 3
 
-The faithful three-cast estimator (``fast_mis=False``) and the software-
-pipelined loop (``pipeline_casts=True``) are not ported yet and raise.
+``pipeline_casts=True`` runs the software-pipelined loop
+(_trace_loop_pipelined), which compacts the wavefront between a bounce's cast
+and its shading.  The faithful three-cast estimator (``fast_mis=False``) is
+not ported yet and raises.
 
 Sample-dimension layout per lane (stateless sampler, ops/samplers.py):
 dims 0-4 camera; per bounce b, base = 5 + 8b:
@@ -32,15 +34,12 @@ from ...constants import INFINITY
 from ...ops import samplers, trace
 from ...ops.sampling import power_heuristic
 from ...scene import camera as cam_mod
-from ...scene.scene import MAT_GLASS, MAT_MATTE, MAT_MIRROR
 from ...utils.math import absdot, cross, dot
 from .. import lights as lights_mod
 from .. import materials as mat_mod
 
 DIMS_PER_BOUNCE = 8
 CAMERA_DIMS = 5
-
-_PORTED_MAT_KINDS = (MAT_MATTE, MAT_MIRROR, MAT_GLASS)
 
 
 class RenderCfg(NamedTuple):
@@ -138,28 +137,32 @@ def make_config(scene, width, height, spp, **kw):
         mat_kinds = tuple(sorted(set(kinds_tab[used].tolist())))
     else:
         mat_kinds = tuple(sorted(set(kinds_tab.tolist())))
-    unported = [k for k in mat_kinds if k not in _PORTED_MAT_KINDS]
-    if unported:
-        raise NotImplementedError(
-            f"material kinds {unported} (metal / plastic / Disney "
-            "microfacet models) are not ported yet")
-    if MAT_GLASS in mat_kinds:
-        m = scene.materials
-        rough = ((m.kind == MAT_GLASS) & ((m.rough_u > 0) | (m.rough_v > 0)))
-        if bool(rough.any()):
-            raise NotImplementedError("rough (microfacet) glass is not "
-                                      "ported yet")
     light_seq = tuple(scene.lights.kind.cpu().numpy().tolist())
-    kw.setdefault("use_bvh", False)
+    n_tris = int(scene.geom.triangles.shape[0])
+    # a scene built with a BVH casts through it (the JAX package brute-forces
+    # below 32k triangles, a threshold measured on the TPU; the brute-force
+    # any-hit here is a Python loop over triangles).  Override with use_bvh.
+    kw.setdefault("use_bvh", scene.bvh is not None)
+    if kw.get("use_bvh") and "bvh_mode" not in kw:
+        # the hand-written kernels where the scene lies on a CUDA device, the
+        # plain walk elsewhere
+        if scene.geom.vertices.device.type == "cuda":
+            kw["bvh_mode"] = "pallas"
+    has_bump = bool(scene.textures is not None
+                    and (scene.materials.bump_tex >= 0).any())
+    if has_bump:
+        raise NotImplementedError("bump maps are not ported yet")
     return RenderCfg(
         width=width, height=height, spp=spp,
         mat_kinds=mat_kinds, light_kinds=tuple(sorted(set(light_seq))),
         light_kind_seq=light_seq,
-        n_tris=int(scene.geom.triangles.shape[0]),
+        n_tris=n_tris,
         n_sphs=int(scene.geom.sph_center.shape[0]),
-        n_big=0,
+        n_big=(0 if scene.big_tri_idx is None
+               else int(scene.big_tri_idx.shape[0])),
         n_lights=int(scene.lights.kind.shape[0]),
-        has_media=False, has_textures=False, has_bump=False,
+        has_media=False, has_textures=scene.textures is not None,
+        has_bump=False,
         n_inst=0, n_inst_tris=0,
         **kw,
     )
@@ -221,6 +224,20 @@ def trace_paths(scene, cfg, sampler, pixel, sample, o, d, rd=None):
 # Fast-MIS variant: one extension + one shadow cast per bounce
 # ---------------------------------------------------------------------------
 
+def _resolve_kd_hit(scene, cfg, hit, it, rd, mats_row=None):
+    """Per-hit base color; with camera differentials (rd, bounce 0 only) the
+    uv footprint feeds the filtered texture lookup."""
+    if not cfg.has_textures:
+        return None
+    mid = None if mats_row is not None else it.mat
+    if rd is None or cfg.texture_filter == "bilinear":
+        return mat_mod.resolve_kd(scene, cfg, mid, it.uv, mats=mats_row)
+    dpdu, dpdv = trace.triangle_dpduv(scene, hit)
+    duvdx, duvdy = trace.compute_differentials(it.p, it.ns, dpdu, dpdv, rd)
+    return mat_mod.resolve_kd(scene, cfg, mid, it.uv, mats=mats_row,
+                              duv=(duvdx, duvdy))
+
+
 def _count(mask):
     return torch.sum(mask.to(torch.float32))
 
@@ -233,7 +250,8 @@ def _fast_parts(scene, cfg: RenderCfg, get_ub, n, rd=None):
       work(b, state, hit)  -> state'       (interaction + NEE + extension
                                             sample + RR)
 
-    _make_fast_bounce composes them into the per-bounce body."""
+    _make_fast_bounce composes them into the per-bounce body; the pipelined
+    runner compacts the wavefront between the cast and the work."""
 
     def cast(state):
         # dead lanes cast with t_max = 0 and can hit nothing
@@ -271,17 +289,33 @@ def _fast_parts(scene, cfg: RenderCfg, get_ub, n, rd=None):
                 power_heuristic(1.0, state["prev_pdf"], 1.0, pdf_area))
             L = L + torch.where((state["alive"] & is_emitter)[..., None],
                                 state["beta"] * le * w[..., None], 0.0)
-        if cfg.has_env:
-            raise NotImplementedError(
-                "the environment-map light (kind 4) is not ported yet")
-        if cfg.has_skybox:
-            # the skybox's light-sampling pdf is 0, so the BSDF-side sample
-            # is dropped: it reaches the image only through the
-            # bounce-0/specular escape path (weight 0 on non-specular escapes)
+        if cfg.has_skybox or cfg.has_env:
             esc = state["alive"] & ~hit.hit
-            le_inf = lights_mod.escaped_radiance(scene, cfg,
-                                                 state["o"], state["d"])
-            w = torch.where(state["specular"], 1.0, 0.0)
+            if cfg.has_env and not cfg.has_skybox:
+                # fused Le + light pdf: one packed gather, one trig pass
+                le_inf, env_pdf = lights_mod.envmap_le_pdf(scene, state["d"])
+                w = torch.where(
+                    state["specular"], 1.0,
+                    power_heuristic(1.0, state["prev_pdf"], 1.0, env_pdf))
+            elif cfg.has_env:
+                le_inf = lights_mod.escaped_radiance(scene, cfg,
+                                                     state["o"], state["d"])
+                # MIS against env importance sampling
+                env_idx = torch.argmax(
+                    (scene.lights.kind == 4).to(torch.int32)).to(torch.int32)
+                env_pdf = lights_mod.pdf_li(scene, cfg, env_idx.expand(m),
+                                            state["o"], state["d"])
+                w = torch.where(
+                    state["specular"], 1.0,
+                    power_heuristic(1.0, state["prev_pdf"], 1.0, env_pdf))
+            else:
+                # the skybox's light-sampling pdf is 0, so the BSDF-side
+                # sample is dropped: it reaches the image only through the
+                # bounce-0/specular escape path (weight 0 on non-specular
+                # escapes)
+                le_inf = lights_mod.escaped_radiance(scene, cfg,
+                                                     state["o"], state["d"])
+                w = torch.where(state["specular"], 1.0, 0.0)
             L = L + torch.where(esc[..., None],
                                 state["beta"] * le_inf * w[..., None], 0.0)
         return L
@@ -302,10 +336,11 @@ def _fast_parts(scene, cfg: RenderCfg, get_ub, n, rd=None):
         u_sel = ub[:, 0]
         u_light = ub[:, 1:3]
         light_idx, light_pdf_sel = _choose_light(scene, cfg, u_sel, it.p)
+        kd_ov = _resolve_kd_hit(scene, cfg, hit, it, rd, mats_row)
         ls = lights_mod.sample_li(scene, cfg, light_idx, it.p, u_light)
         wi_local = trace.to_local(it, ls.wi)
         f_l, scat_pdf = mat_mod.evaluate(mats_row, None, cfg, wo_local,
-                                         wi_local)
+                                         wi_local, kd_ov)
         f_l = f_l * absdot(ls.wi, it.ns)[..., None]
         can = ((ls.pdf > 0) & torch.any(ls.li > 0, -1)
                & torch.any(f_l > 0, -1))
@@ -325,7 +360,7 @@ def _fast_parts(scene, cfg: RenderCfg, get_ub, n, rd=None):
         # ---- extension ------------------------------------------------------
         u_bsdf = ub[:, 5:7]
         smp = mat_mod.sample(mats_row, None, cfg, wo_local, u_bsdf,
-                             u_bsdf[..., 0])
+                             u_bsdf[..., 0], kd_ov)
         beta = state["beta"] * smp.weight
         alive = alive & smp.valid & torch.any(beta > 0, dim=-1)
         entering = dot(it.wo, it.ng) > 0
@@ -401,11 +436,6 @@ def trace_paths_fast(scene, cfg: RenderCfg, sampler, pixel, sample, o, d,
                        _make_fast_bounce, rd=rd)
 
 
-def _trace_loop_pipelined(*a, **kw):
-    raise NotImplementedError(
-        "the software-pipelined loop (pipeline_casts=True) is not ported yet")
-
-
 def _prethin_p(alive, m):
     """Pre-thinning RR survival probability for a compaction into an
     m-slot buffer: p = min(1, (m - 4*sqrt(m)) / alive), a 0-dim tensor (no
@@ -417,49 +447,24 @@ def _prethin_p(alive, m):
     return torch.clamp(margin / torch.clamp(alive_count, min=1.0), max=1.0)
 
 
-def _compaction_stages(cfg, n):
+def _compaction_stages(cfg, n, increasing_bounces=False):
     """The (bounce, frac) stages that apply at width n: within max_depth,
-    dividing n, at least 256 lanes wide, widths strictly shrinking."""
+    dividing n, at least 256 lanes wide, widths strictly shrinking (and, for
+    the pipelined loop, bounces strictly increasing)."""
     stages = (tuple(cfg.compact_stages) if cfg.compact_stages
               else ((cfg.compact_from, cfg.compact_frac),))
-    keep, last = [], n
+    keep, last, last_b = [], n, -1
     for b, f in stages:
-        if b <= cfg.max_depth and n % f == 0 and n // f >= 256 and n // f < last:
+        if (b <= cfg.max_depth and n % f == 0 and n // f >= 256
+                and n // f < last and (b > last_b or not increasing_bounces)):
             keep.append((b, f))
-            last = n // f
+            last, last_b = n // f, b
     return tuple(keep)
 
 
-def _trace_loop(scene, cfg: RenderCfg, sampler, pixel, sample, o, d,
-                make_bounce, rd=None):
-    """The bounce-loop runner.
-
-    With cfg.compact_tail: Russian roulette leaves only a few percent of
-    lanes alive past bounce 4, so survivors are compacted into an
-    n//compact_frac buffer after bounce `compact_from` and the tail bounces
-    run at that width; radiance is scattered back at the end.  Buffer widths
-    are fixed, as in the JAX package, so both compute the same thing.
-
-    Returns (N,3) radiance, or ((N,3), n_rays) when cfg.count_rays (n_rays
-    = useful scene casts: lanes actually tracing, not dispatch width)."""
-    if rd is not None:
-        raise NotImplementedError("ray differentials are not ported yet")
+def _initial_state(cfg, o, d):
     n = o.shape[0]
     dev = o.device
-    n_dims = CAMERA_DIMS + DIMS_PER_BOUNCE * (cfg.max_depth + 1)
-    stages = _compaction_stages(cfg, n) if cfg.compact_tail else ()
-    n_dims_tot = n_dims + len(stages)
-    if not samplers.supports_inloop_dims(sampler):
-        raise NotImplementedError(
-            f"sampler kind {sampler.kind!r} is not ported yet")
-
-    def make_get_ub(pix, smp):
-        def get_ub(b):
-            base = CAMERA_DIMS + b * DIMS_PER_BOUNCE
-            return samplers.sample_bounce_dims(
-                sampler, pix, smp, base, DIMS_PER_BOUNCE, n_dims_tot)
-        return get_ub
-
     state = dict(
         o=o, d=d,
         beta=torch.ones((n, 3), dtype=torch.float32, device=dev),
@@ -472,56 +477,223 @@ def _trace_loop(scene, cfg: RenderCfg, sampler, pixel, sample, o, d,
     )
     if cfg.count_rays:
         state["nrays"] = torch.zeros((), dtype=torch.float32, device=dev)
-    bounce = make_bounce(scene, cfg, make_get_ub(pixel, sample), n)
+    return state
 
-    # --- multi-stage compaction: run to each stage bounce, pre-thin (RR,
-    # unbiased) survivors into an n//frac buffer, continue; scatter the
-    # partial radiances back through the composed source maps at the end.
-    cur_pixel, cur_sample = pixel, sample
+
+def _compact(cfg, state, survivors, m, u_thin):
+    """Pre-thin (RR, unbiased) the `survivors` of a wavefront and compact
+    them into a fixed m-slot buffer.  Returns (state at width m, src, valid):
+    slot i came from lane src[i] and is real where valid[i].  Buffer widths
+    are fixed, as in the JAX package, so both compute the same thing; slot m
+    is a spare that takes every lane that is not kept (and any overflow) and
+    is sliced off."""
+    dev = state["o"].device
+    n_cur = state["o"].shape[0]
+    p_keep = _prethin_p(survivors, m)
+    kept = survivors & (u_thin < p_keep)
+    beta = state["beta"] / p_keep
+    slots = torch.cumsum(kept.to(torch.int64), dim=0) - 1
+    lane_id = torch.arange(n_cur, dtype=torch.int64, device=dev)
+    src = torch.zeros((m + 1,), dtype=torch.int64, device=dev)
+    src[torch.where(kept, torch.clamp(slots, max=m), m)] = lane_id
+    src = src[:m]
+    kept_count = torch.sum(kept.to(torch.int64))
+    valid = torch.arange(m, dtype=torch.int64, device=dev) < kept_count
+    new_state = dict(
+        o=state["o"][src], d=state["d"][src],
+        beta=beta[src],
+        L=torch.zeros((m, 3), dtype=torch.float32, device=dev),
+        alive=valid,
+        specular=state["specular"][src],
+        eta_scale=state["eta_scale"][src],
+        prev_pdf=state["prev_pdf"][src],
+        prev_p=state["prev_p"][src],
+    )
+    if cfg.count_rays:
+        new_state["nrays"] = state["nrays"]  # scalar: carries across widths
+    return new_state, src, valid
+
+
+def _scatter_back(L, outer):
+    """Add the partial radiances of the compacted stages back through the
+    composed source maps; outer: [(L_at_this_width, src, valid), ...]."""
+    for L_outer, src, valid in reversed(outer):
+        L = L_outer.index_add(0, src, torch.where(valid[..., None], L, 0.0))
+    return L
+
+
+def _sampler_dims(cfg, sampler, n_stages):
+    """(dims before the per-stage thinning dims, all dims)."""
+    if not samplers.supports_inloop_dims(sampler):
+        raise NotImplementedError(
+            f"sampler kind {sampler.kind!r} is not ported yet")
+    n_dims = CAMERA_DIMS + DIMS_PER_BOUNCE * (cfg.max_depth + 1)
+    return n_dims, n_dims + n_stages
+
+
+def _make_get_ub(sampler, pix, smp, n_dims_tot):
+    def get_ub(b):
+        base = CAMERA_DIMS + b * DIMS_PER_BOUNCE
+        return samplers.sample_bounce_dims(
+            sampler, pix, smp, base, DIMS_PER_BOUNCE, n_dims_tot)
+    return get_ub
+
+
+def _peel0(cfg, rd):
+    """Bounce 0 is peeled out when camera differentials drive a filtered
+    texture lookup: only camera rays carry a valid footprint, spawned rays
+    fall back to bilinear."""
+    return (rd is not None and cfg.has_textures
+            and cfg.texture_filter != "bilinear")
+
+
+def _trace_loop(scene, cfg: RenderCfg, sampler, pixel, sample, o, d,
+                make_bounce, rd=None):
+    """The bounce-loop runner.
+
+    With cfg.compact_tail: Russian roulette leaves only a few percent of
+    lanes alive past bounce 4, so survivors are compacted into an
+    n//compact_frac buffer after bounce `compact_from` and the tail bounces
+    run at that width; radiance is scattered back at the end.
+
+    Returns (N,3) radiance, or ((N,3), n_rays) when cfg.count_rays (n_rays
+    = useful scene casts: lanes actually tracing, not dispatch width)."""
+    n = o.shape[0]
+    stages = _compaction_stages(cfg, n) if cfg.compact_tail else ()
+    n_dims, n_dims_tot = _sampler_dims(cfg, sampler, len(stages))
+
+    state = _initial_state(cfg, o, d)
+    bounce = make_bounce(scene, cfg,
+                         _make_get_ub(sampler, pixel, sample, n_dims_tot), n)
     b_prev = 0
+    if _peel0(cfg, rd):
+        bounce0 = make_bounce(
+            scene, cfg, _make_get_ub(sampler, pixel, sample, n_dims_tot), n,
+            rd=rd)
+        state = bounce0(0, state)
+        b_prev = 1
+
+    # --- multi-stage compaction: run to each stage bounce, pre-thin
+    # survivors into an n//frac buffer, continue; scatter the partial
+    # radiances back at the end.
+    cur_pixel, cur_sample = pixel, sample
     outer = []  # (L_at_this_width, src, valid) per stage
     for si, (cb, frac) in enumerate(stages):
         for b in range(b_prev, cb):
             state = bounce(b, state)
-        b_prev = cb
-        n_cur = state["o"].shape[0]
+        b_prev = max(b_prev, cb)
         m = n // frac
-        alive = state["alive"]
-        p_keep = _prethin_p(alive, m)
         u_thin = samplers.sample_bounce_dims(
             sampler, cur_pixel, cur_sample, n_dims + si, 1, n_dims_tot)[:, 0]
-        kept = alive & (u_thin < p_keep)
-        beta = state["beta"] / p_keep
-        # fixed-width compaction: slot m is a spare that takes every lane
-        # that is not kept (and any overflow) and is sliced off
-        slots = torch.cumsum(kept.to(torch.int64), dim=0) - 1
-        lane_id = torch.arange(n_cur, dtype=torch.int64, device=dev)
-        src = torch.zeros((m + 1,), dtype=torch.int64, device=dev)
-        src[torch.where(kept, torch.clamp(slots, max=m), m)] = lane_id
-        src = src[:m]
-        kept_count = torch.sum(kept.to(torch.int64))
-        valid = torch.arange(m, dtype=torch.int64, device=dev) < kept_count
-        outer.append((state["L"], src, valid))
-        new_state = dict(
-            o=state["o"][src], d=state["d"][src],
-            beta=beta[src],
-            L=torch.zeros((m, 3), dtype=torch.float32, device=dev),
-            alive=valid,
-            specular=state["specular"][src],
-            eta_scale=state["eta_scale"][src],
-            prev_pdf=state["prev_pdf"][src],
-            prev_p=state["prev_p"][src],
-        )
-        if cfg.count_rays:
-            new_state["nrays"] = state["nrays"]  # scalar: carries across widths
-        state = new_state
+        L_wide = state["L"]
+        state, src, valid = _compact(cfg, state, state["alive"], m, u_thin)
+        outer.append((L_wide, src, valid))
         cur_pixel, cur_sample = cur_pixel[src], cur_sample[src]
-        bounce = make_bounce(scene, cfg, make_get_ub(cur_pixel, cur_sample), m)
+        bounce = make_bounce(
+            scene, cfg, _make_get_ub(sampler, cur_pixel, cur_sample,
+                                     n_dims_tot), m)
     for b in range(b_prev, cfg.max_depth + 1):
         state = bounce(b, state)
-    L = state["L"]
-    for L_outer, src, valid in reversed(outer):
-        L = L_outer.index_add(0, src, torch.where(valid[..., None], L, 0.0))
+    L = _scatter_back(state["L"], outer)
+    if cfg.count_rays:
+        return L, state["nrays"]
+    return L
+
+
+def _pipelined_stages(cfg, n):
+    """The stages of the pipelined loop at width n."""
+    return _compaction_stages(cfg, n, increasing_bounces=True)
+
+
+def pipelined_cast_counts(cfg, n):
+    """(closest-hit casts, shadow casts) that one call of the pipelined loop
+    makes at width n: one closest-hit cast at the camera and one after every
+    `work`; one shadow cast per `work`; `work` runs once per bounce below
+    max_depth."""
+    if cfg.compact_tail and _pipelined_stages(cfg, n):
+        return cfg.max_depth + 1, cfg.max_depth
+    return cfg.max_depth + 1, cfg.max_depth + 1
+
+
+def _trace_loop_pipelined(scene, cfg: RenderCfg, sampler, pixel, sample,
+                          o, d, rd=None):
+    """Software-pipelined fast-MIS runner (cfg.pipeline_casts).
+
+    Each iteration runs emit(b) -> work(b) -> cast(b+1), so a
+    compact_stages entry (b, frac) compacts the wavefront AFTER bounce b's
+    cast + emission but BEFORE its shading work: a stage at bounce 0 runs
+    all NEE/texture/material shading only on camera rays that actually hit,
+    and later stages shrink each bounce's shading width the moment its cast
+    resolves instead of one bounce later.  Identical estimator math to
+    _trace_loop: the same sample dims feed the same computations, only
+    dispatch widths differ.
+    """
+    n = o.shape[0]
+    stages = _pipelined_stages(cfg, n) if cfg.compact_tail else ()
+    if not stages:
+        return _trace_loop(scene, cfg, sampler, pixel, sample, o, d,
+                           _make_fast_bounce, rd=rd)
+    n_dims, n_dims_tot = _sampler_dims(cfg, sampler, len(stages))
+    peel0 = _peel0(cfg, rd)
+    cur_pixel, cur_sample, cur_rd = pixel, sample, rd
+    state = _initial_state(cfg, o, d)
+
+    def make_parts(m, with_rd):
+        return _fast_parts(
+            scene, cfg, _make_get_ub(sampler, cur_pixel, cur_sample,
+                                     n_dims_tot), m,
+            rd=cur_rd if with_rd else None)
+
+    def counted_cast(cast, state):
+        if cfg.count_rays:
+            state = dict(state, nrays=state["nrays"] + _count(state["alive"]))
+        return state, cast(state)
+
+    def run_span(b0, b1, state, hit, m):
+        """Full emit->work->cast iterations for bounces [b0, b1)."""
+        for bb in range(b0, b1):
+            # bounce 0 peeled: camera differentials drive the filtered
+            # texture lookup only there
+            cast, emit, work = make_parts(m, with_rd=peel0 and bb == 0)
+            state = dict(state, L=state["L"] + emit(bb, state, hit))
+            state = work(bb, state, hit, count_cast=False)
+            state, hit = counted_cast(cast, state)
+        return state, hit
+
+    # camera cast (bounce 0) at full width
+    cast, _e, _w = make_parts(n, with_rd=False)
+    state, hit = counted_cast(cast, state)
+
+    outer = []  # (L_at_this_width, src, valid) per stage
+    b = 0
+    m_cur = n
+    for si, (cb, frac) in enumerate(stages):
+        state, hit = run_span(b, cb, state, hit, m_cur)
+        # emission of bounce cb at the pre-compaction width (escaped lanes
+        # contribute here and are then dropped)
+        _c, emit, _w = make_parts(m_cur, with_rd=False)
+        L_wide = state["L"] + emit(cb, state, hit)
+        # ---- compact survivors (lanes that hit AND pass pre-thin RR) ------
+        m = n // frac
+        u_thin = samplers.sample_bounce_dims(
+            sampler, cur_pixel, cur_sample, n_dims + si, 1, n_dims_tot)[:, 0]
+        state, src, valid = _compact(cfg, state, state["alive"] & hit.hit, m,
+                                     u_thin)
+        outer.append((L_wide, src, valid))
+        hit = trace.Hit(hit=hit.hit[src] & valid, t=hit.t[src],
+                        kind=hit.kind[src], prim=hit.prim[src], b=hit.b[src])
+        cur_pixel, cur_sample = cur_pixel[src], cur_sample[src]
+        if cur_rd is not None:
+            cur_rd = type(cur_rd)(*(x[src] for x in cur_rd))
+        m_cur = m
+        # work + next cast for bounce cb at the compacted width
+        castc, _e, workc = make_parts(m, with_rd=peel0 and cb == 0)
+        state = workc(cb, state, hit, count_cast=False)
+        state, hit = counted_cast(castc, state)
+        b = cb + 1
+    state, hit = run_span(b, cfg.max_depth, state, hit, m_cur)
+    _c, emit, _w = make_parts(m_cur, with_rd=False)
+    L = _scatter_back(state["L"] + emit(cfg.max_depth, state, hit), outer)
     if cfg.count_rays:
         return L, state["nrays"]
     return L
@@ -534,8 +706,6 @@ def _trace_loop(scene, cfg: RenderCfg, sampler, pixel, sample, o, d,
 def render_chunk(scene, camera, sampler, cfg: RenderCfg, sample_start, n_samples):
     """Render n_samples spp for every pixel on the scene's device; returns
     the (H*W, 3) radiance sum, or (sum, n_rays) when cfg.count_rays."""
-    if cfg.has_textures:
-        raise NotImplementedError("image textures are not ported yet")
     dev = scene.geom.vertices.device
     hw = cfg.width * cfg.height
     pixel = torch.arange(hw, dtype=torch.int32, device=dev).repeat(n_samples)
@@ -545,9 +715,15 @@ def render_chunk(scene, camera, sampler, cfg: RenderCfg, sample_start, n_samples
     p_film, time_u, p_lens = samplers.camera_sample(
         sampler, pixel, sample, cfg.width, cfg.pixel_filter,
         cfg.filter_radius, cfg.filter_alpha)
-    o, d, _t = cam_mod.generate_rays(camera, p_film, time_u, p_lens)
+    rd = None
+    if cfg.has_textures and cfg.texture_filter != "bilinear":
+        o, d, _t, rd = cam_mod.generate_ray_differentials(
+            camera, p_film, time_u, p_lens)
+        rd = cam_mod.scale_differentials(o, d, rd, 1.0 / (cfg.spp ** 0.5))
+    else:
+        o, d, _t = cam_mod.generate_rays(camera, p_film, time_u, p_lens)
     tracer = trace_paths_fast if cfg.fast_mis else trace_paths
-    out = tracer(scene, cfg, sampler, pixel, sample, o, d)
+    out = tracer(scene, cfg, sampler, pixel, sample, o, d, rd=rd)
     L, nrays = out if cfg.count_rays else (out, None)
     # box filter: each sample belongs to its own pixel -> segment sum by
     # reshape (samples are pixel-major tiles)

@@ -8,7 +8,8 @@ import torch
 
 from ..constants import PI
 from ..scene.scene import (
-    LIGHT_AREA, LIGHT_DISTANT, LIGHT_POINT, LIGHT_SKYBOX, LIGHT_SPOT,
+    LIGHT_AREA, LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT, LIGHT_SKYBOX,
+    LIGHT_SPOT,
 )
 from ..utils.math import cross, length
 
@@ -19,8 +20,8 @@ def light_powers(scene):
     """Per-light power luminance."""
     L = scene.lights
     kind = L.kind
-    lum = L.emit @ torch.tensor(_LUMINANCE, dtype=torch.float32,
-                                device=L.emit.device)
+    lum_w = torch.tensor(_LUMINANCE, dtype=torch.float32, device=L.emit.device)
+    lum = L.emit @ lum_w
     wr = scene.world_radius
 
     power = torch.zeros_like(lum)
@@ -39,6 +40,11 @@ def light_powers(scene):
     area = 0.5 * length(cross(p1 - p0, p2 - p0))
     area_pow = torch.where(L.two_sided > 0.5, 2.0, 1.0) * lum * area * PI
     power = torch.where(kind == LIGHT_AREA, area_pow, power)
+    # environment map: pi r^2 * mean radiance luminance
+    if scene.env is not None:
+        env_lum = torch.mean(scene.env.image @ lum_w)
+        power = torch.where(kind == LIGHT_INFINITE, PI * wr * wr * env_lum,
+                            power)
     # skybox: power 0 (excluded from power heuristics)
     power = torch.where(kind == LIGHT_SKYBOX, 0.0, power)
     return power

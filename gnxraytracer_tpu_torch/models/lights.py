@@ -2,8 +2,8 @@
 
 A per-lane light index gathers a row of the table; every light *kind*
 present in the scene is evaluated branchlessly and combined with
-where-masks.  Ported kinds: point (0), spot (1), distant (2), diffuse area
-(3) and skybox (5); the environment map (kind 4) raises.
+where-masks.  Kinds: point (0), spot (1), distant (2), diffuse area (3),
+the HDR environment map (4) and skybox (5).
 
 Parity note: the reference renderer's diffuse area light emits whenever
 dot(n, w) is nonzero (a bool-conversion bug that makes it effectively
@@ -15,12 +15,17 @@ from typing import NamedTuple
 
 import torch
 
-from ..constants import PI
-from ..ops.sampling import uniform_sample_triangle
-from ..scene.scene import (
-    LIGHT_AREA, LIGHT_DISTANT, LIGHT_POINT, LIGHT_SKYBOX, LIGHT_SPOT, Scene,
+from ..constants import INV_2PI, INV_PI, PI
+from ..ops.sampling import (
+    Distribution2D, pdf_2d, sample_continuous_2d_idx, uniform_sample_triangle,
 )
-from ..utils.math import cross, dot, length, normalize
+from ..scene.scene import (
+    LIGHT_AREA, LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT, LIGHT_SKYBOX,
+    LIGHT_SPOT, Scene,
+)
+from ..utils.math import (
+    cross, dot, length, normalize, spherical_phi, spherical_theta,
+)
 
 
 class LightSample(NamedTuple):
@@ -44,12 +49,6 @@ class LightRow(NamedTuple):
     p0: torch.Tensor  # area-light triangle vertices (zeros for non-area)
     p1: torch.Tensor
     p2: torch.Tensor
-
-
-def _unported(cfg):
-    if cfg.has_env:
-        raise NotImplementedError(
-            "the environment-map light (kind 4) is not ported yet")
 
 
 def light_rows(scene: Scene, light_idx) -> LightRow:
@@ -112,13 +111,52 @@ def skybox_le(scene: Scene, o, d):
     return torch.where(hit[..., None], col, 0.0)
 
 
+def _env_texel(env, d):
+    """(iv, iu, theta) of world direction d in the equirect map."""
+    w = normalize(d @ env.world_to_light[:3, :3].T)
+    theta = spherical_theta(w)
+    u = spherical_phi(w) * INV_2PI
+    v = theta * INV_PI
+    h, wd = env.image.shape[:2]
+    iu = torch.clamp((u * wd).to(torch.int64), 0, wd - 1)
+    iv = torch.clamp((v * h).to(torch.int64), 0, h - 1)
+    return iv, iu, theta
+
+
+def _env_pdf(map_pdf, sin_theta):
+    return torch.where(
+        sin_theta > 0,
+        map_pdf / (2.0 * PI * PI * torch.clamp(sin_theta, min=1e-8)), 0.0)
+
+
+def envmap_le(scene: Scene, d):
+    """Environment radiance along d: equirect texel lookup."""
+    iv, iu, _ = _env_texel(scene.env, d)
+    return scene.env.image[iv, iu]
+
+
+def envmap_le_pdf(scene: Scene, d):
+    """Environment radiance AND the light-sampling pdf of direction d from
+    ONE (N, 4) gather of the packed [rgb, func/marg_int] table and one
+    spherical-trig pass."""
+    iv, iu, theta = _env_texel(scene.env, d)
+    row = scene.env.le_func[iv, iu]
+    return row[..., 0:3], _env_pdf(row[..., 3], torch.sin(theta))
+
+
 def escaped_radiance(scene: Scene, cfg, o, d):
     """Sum of infinite-light Le for escaped rays."""
-    _unported(cfg)
     le = torch.zeros_like(d)
     if cfg.has_skybox:
         le = le + skybox_le(scene, o, d)
+    if cfg.has_env:
+        le = le + envmap_le(scene, d)
     return le
+
+
+def _env_distribution(env):
+    return Distribution2D(env.cond_func, env.cond_cdf, env.cond_int,
+                          env.marg_cdf, env.marg_int)
 
 
 def sample_li(scene: Scene, cfg, light_idx, p, u2):
@@ -126,7 +164,6 @@ def sample_li(scene: Scene, cfg, light_idx, p, u2):
 
     light_idx: (N,) int32; p: (N,3) shading point; u2: (N,2).
     """
-    _unported(cfg)
     row = light_rows(scene, light_idx)
     kind = row.kind
     pos = row.pos
@@ -219,6 +256,28 @@ def sample_li(scene: Scene, cfg, light_idx, p, u2):
                              p + w * (2.0 * scene.world_radius), target)
         is_inf = is_inf | m
 
+    if cfg.has_env:
+        # environment map: 2D CDF importance sample -> (theta, phi),
+        # pdf / (2 pi^2 sin).  The sampled integer texel serves radiance AND
+        # the map pdf from one packed-row gather (le_func[..., 3] ==
+        # func/marg_int == the 2D distribution's pdf at that texel).
+        m = kind == LIGHT_INFINITE
+        env = scene.env
+        uv, iv, iu = sample_continuous_2d_idx(_env_distribution(env), u2)
+        erow = env.le_func[iv.long(), iu.long()]
+        theta = uv[..., 1] * PI
+        phi = uv[..., 0] * 2.0 * PI
+        st, ct = torch.sin(theta), torch.cos(theta)
+        w_light = torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct],
+                              dim=-1)
+        w = w_light @ env.light_to_world[:3, :3].T
+        wi = torch.where(m[..., None], w, wi)
+        pdf = torch.where(m, _env_pdf(erow[..., 3], st), pdf)
+        li = torch.where(m[..., None], erow[..., 0:3], li)
+        target = torch.where(m[..., None],
+                             p + w * (2.0 * scene.world_radius), target)
+        is_inf = is_inf | m
+
     return LightSample(wi, pdf, li, target, is_delta, is_inf)
 
 
@@ -226,7 +285,6 @@ def pdf_li(scene: Scene, cfg, light_idx, p, wi):
     """Solid-angle pdf of the chosen light sampling direction wi (the
     BSDF-side MIS weight).  Delta lights return 0, and so does the skybox,
     which makes the BSDF side skip it for non-specular lobes."""
-    _unported(cfg)
     row = light_rows(scene, light_idx)
     pdf = torch.zeros(p.shape[0], dtype=torch.float32, device=p.device)
 
@@ -242,6 +300,15 @@ def pdf_li(scene: Scene, cfg, light_idx, p, wi):
             valid & (cos_l > 1e-8),
             dist2 / torch.clamp(cos_l * area, min=1e-12), 0.0)
         pdf = torch.where(m, pdf_sa, pdf)
+
+    if cfg.has_env:
+        m = row.kind == LIGHT_INFINITE
+        env = scene.env
+        w_l = normalize(wi @ env.world_to_light[:3, :3].T)
+        theta = spherical_theta(w_l)
+        uv = torch.stack([spherical_phi(w_l) * INV_2PI, theta * INV_PI], dim=-1)
+        p2 = pdf_2d(_env_distribution(env), uv)
+        pdf = torch.where(m, _env_pdf(p2, torch.sin(theta)), pdf)
 
     return pdf
 

@@ -3,9 +3,9 @@
 Each hit gathers its material row, every material *kind present in the
 scene* is evaluated for all lanes, and results combine with where-masks.
 The set of present kinds is static (render config), so absent kinds cost
-nothing.  Ported kinds: matte (Lambert / Oren-Nayar), mirror, smooth glass;
-the microfacet kinds (metal, plastic, Disney, rough glass) are refused by
-path.make_config.
+nothing.  Matte (Lambert / Oren-Nayar), mirror and smooth glass are
+assembled here; the microfacet kinds (metal, plastic, rough glass, Disney)
+in microfacet.py and disney.py.
 
 Interface (local shading frame, z = ns):
   evaluate(mats, mid, cfg, wo, wi)  -> (f, pdf)   over non-specular lobes
@@ -17,7 +17,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..scene.scene import MAT_GLASS, MAT_MATTE, MAT_MIRROR, MaterialTable
+from ..scene.scene import (
+    MAT_DISNEY, MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_PLASTIC,
+    MaterialTable,
+)
 from ..utils.math import abs_cos_theta
 from . import bxdf
 
@@ -60,6 +63,42 @@ def has_nonspecular(mats: MaterialTable, mid, cfg):
     return ns
 
 
+def resolve_kd(scene, cfg, mid, uv, mats=None, duv=None):
+    """Per-hit diffuse/base color: texture lookup where kd_tex >= 0, else
+    the table color.
+
+    mats: optionally a pre-gathered per-lane table (then mid=None).
+    duv: optional (duvdx, duvdy) texture-space footprint from
+    trace.compute_differentials — selects the filtered lookup per
+    cfg.texture_filter (trilinear / EWA) instead of level-0 bilinear."""
+    if mats is None:
+        mats = scene.materials
+    kd = _g(mats.kd, mid)
+    if not getattr(cfg, "has_textures", False) or scene.textures is None:
+        return kd
+    from ..ops.texture import bilinear_lookup, ewa_lookup, trilinear_lookup
+
+    atlas, offs, sizes = scene.textures
+    tex_id = _g(mats.kd_tex, mid)
+    tid = torch.clamp(tex_id, min=0)
+    filt = getattr(cfg, "texture_filter", "bilinear")
+    if duv is not None and filt == "ewa":
+        val = ewa_lookup(atlas, offs, sizes, tid, uv, duv[0], duv[1])
+    elif duv is not None and filt == "trilinear":
+        # isotropic width = max footprint extent
+        width = torch.maximum(
+            torch.amax(torch.abs(duv[0]), dim=-1),
+            torch.amax(torch.abs(duv[1]), dim=-1))
+        val = trilinear_lookup(atlas, offs, sizes, tid, uv, width)
+    else:
+        val = bilinear_lookup(atlas, offs, sizes, tid, uv)
+    return torch.where((tex_id >= 0)[..., None], val, kd)
+
+
+_GLOSSY_EVAL = (MAT_METAL, MAT_PLASTIC, MAT_GLASS, MAT_DISNEY)
+_GLOSSY_SAMPLE = (MAT_METAL, MAT_PLASTIC, MAT_DISNEY)
+
+
 def _matte(mats, mid, wo, wi, kd_override):
     kd = kd_override if kd_override is not None else _g(mats.kd, mid)
     sigma = _g(mats.sigma, mid)
@@ -81,6 +120,13 @@ def evaluate(mats: MaterialTable, mid, cfg, wo, wi, kd_override=None):
         f_m, p_m = _matte(mats, mid, wo, wi, kd_override)
         f = torch.where(m[..., None], f_m, f)
         pdf = torch.where(m, p_m, pdf)
+
+    if any(k in cfg.mat_kinds for k in _GLOSSY_EVAL):
+        from . import microfacet as mf
+
+        f2, p2, mask2 = mf.evaluate_glossy(mats, mid, cfg, wo, wi, kd_override)
+        f = torch.where(mask2[..., None], f2, f)
+        pdf = torch.where(mask2, p2, pdf)
 
     return f, pdf
 
@@ -144,5 +190,20 @@ def sample(mats: MaterialTable, mid, cfg, wo, u2, uc, kd_override=None):
         trans = trans | (m & ~choose_r)
         eta = torch.where(m, eta_b, eta)
         valid = valid | (m & ok)
+
+    if any(k in cfg.mat_kinds for k in _GLOSSY_SAMPLE):
+        # rough glass comes through here too when a scene also holds one of
+        # these kinds, exactly as in the JAX package
+        from . import microfacet as mf
+
+        smp2, mask2 = mf.sample_glossy(mats, mid, cfg, wo, u2, uc, kd_override)
+        wi = torch.where(mask2[..., None], smp2.wi, wi)
+        weight = torch.where(mask2[..., None], smp2.weight, weight)
+        pdf = torch.where(mask2, smp2.pdf, pdf)
+        f = torch.where(mask2[..., None], smp2.f, f)
+        spec = torch.where(mask2, smp2.specular, spec)
+        trans = torch.where(mask2, smp2.transmission, trans)
+        eta = torch.where(mask2, smp2.eta, eta)
+        valid = torch.where(mask2, smp2.valid, valid)
 
     return BsdfSample(wi, weight, pdf, f, spec, trans, eta, valid)

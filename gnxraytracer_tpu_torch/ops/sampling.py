@@ -1,8 +1,9 @@
 """Sampling warps, MIS heuristics, and the 1D CDF distribution as tensor
-ops.  All functions broadcast over leading batch dims.  Distribution2D and
-the environment-map CDF code of the JAX package are not ported yet.
+ops, and the 2D marginal/conditional distribution the environment light
+samples.  All functions broadcast over leading batch dims.
 """
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -178,3 +179,107 @@ def sample_discrete_1d(dist: Distribution1D, u):
 
 def discrete_pdf_1d(dist: Distribution1D, index):
     return dist.func[index] / (dist.func_int * dist.count)
+
+
+# ---------------------------------------------------------------------------
+# Distribution2D
+# ---------------------------------------------------------------------------
+
+class Distribution2D(NamedTuple):
+    """2D marginal/conditional distribution.
+
+    cond_func: (H, W)    conditional p(u|v) rows
+    cond_cdf:  (H, W+1)
+    cond_int:  (H,)      per-row integrals
+    marg_cdf:  (H+1,)
+    marg_int:  ()        total integral
+    cond_inv:  always None here.  The JAX package can carry an inverse-CDF
+               jump table that shortens its bisection on the TPU; a
+               searchsorted per row gives the same indices, so the field is
+               kept only for the tables to match by name.
+    """
+
+    cond_func: torch.Tensor
+    cond_cdf: torch.Tensor
+    cond_int: torch.Tensor
+    marg_cdf: torch.Tensor
+    marg_int: torch.Tensor
+    cond_inv: object = None
+
+    @property
+    def shape(self):
+        return self.cond_func.shape
+
+
+def make_distribution2d(func, device=None):
+    func = torch.as_tensor(func, dtype=torch.float32, device=device)
+    cond = make_distribution1d(func)  # batched over rows
+    marg = make_distribution1d(cond.func_int)
+    return Distribution2D(cond.func, cond.cdf, cond.func_int, marg.cdf,
+                          marg.func_int)
+
+
+def _row_searchsorted(cdf2d, rows, u):
+    """Per-lane searchsorted(cdf2d[rows[i]], u[i], side='right') - 1 without
+    materializing per-lane CDF rows (an (N, W+1) gather): a bisection over
+    the flat table, ceil(log2(W+1)) scalar gathers per lane."""
+    w1 = cdf2d.shape[-1]
+    flat = cdf2d.reshape(-1)
+    base = rows.to(torch.int64) * w1
+    lo = torch.zeros_like(base)
+    hi = torch.full_like(base, w1)
+    # invariant: cdf[lo] <= u (cdf[0] == 0 <= u) and (hi == w1 or cdf[hi] > u)
+    for _ in range(int(math.ceil(math.log2(max(w1, 2))))):
+        done = (hi - lo) <= 1
+        mid = (lo + hi) >> 1
+        v = flat[base + torch.clamp(mid, 0, w1 - 1)]
+        go_right = (v <= u) & ~done
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(~go_right & ~done, mid, hi)
+    return lo
+
+
+def sample_continuous_2d_idx(dist: Distribution2D, u):
+    """u: (..., 2) -> ((..., 2) point in [0,1)^2, iv, iu) WITHOUT the pdf
+    func gather: the sampled integer texel (iv, iu) lets callers holding a
+    packed [payload, func/marg_int] table serve the pdf AND their payload
+    (e.g. env radiance) from ONE per-lane row gather."""
+    h, w = dist.shape
+    marg = Distribution1D(dist.cond_int, dist.marg_cdf, dist.marg_int)
+    d1, _pdf1, v_idx = sample_continuous_1d(marg, u[..., 1])
+    u0 = u[..., 0]
+    idx = torch.clamp(_row_searchsorted(dist.cond_cdf, v_idx, u0), 0, w - 1)
+    w1 = dist.cond_cdf.shape[-1]
+    cdf_flat = dist.cond_cdf.reshape(-1)
+    base = v_idx.to(torch.int64) * w1
+    c_lo = cdf_flat[base + idx]
+    c_hi = cdf_flat[base + idx + 1]
+    width = c_hi - c_lo
+    du = torch.where(width > 0.0,
+                     (u0 - c_lo) / torch.where(width > 0.0, width, 1.0),
+                     u0 - c_lo)
+    d0 = (idx.to(torch.float32) + du) / w
+    return (torch.stack([d0, d1], dim=-1), v_idx.to(torch.int32),
+            idx.to(torch.int32))
+
+
+def sample_continuous_2d(dist: Distribution2D, u):
+    """u: (..., 2) -> ((..., 2) point in [0,1)^2, pdf).  The pdf is the
+    conditional's times the marginal's, each computed once, here."""
+    h, w = dist.shape
+    p, v_idx, idx = sample_continuous_2d_idx(dist, u)
+    vi = v_idx.to(torch.int64)
+    cond_int = dist.cond_int[vi]
+    f = dist.cond_func.reshape(-1)[vi * w + idx.to(torch.int64)]
+    pdf0 = torch.where(cond_int > 0.0,
+                       f / torch.where(cond_int > 0.0, cond_int, 1.0), 0.0)
+    pdf1 = torch.where(dist.marg_int > 0.0, cond_int / dist.marg_int, 0.0)
+    return p, pdf0 * pdf1
+
+
+def pdf_2d(dist: Distribution2D, p):
+    """PDF of a point p in [0,1)^2 w.r.t. the 2D distribution."""
+    h, w = dist.shape
+    iu = torch.clamp((p[..., 0] * w).to(torch.int64), 0, w - 1)
+    iv = torch.clamp((p[..., 1] * h).to(torch.int64), 0, h - 1)
+    return dist.cond_func[iv, iu] / dist.marg_int

@@ -2,8 +2,10 @@
 types, plus surface-interaction construction.
 
 A hit record is SoA tensors carrying prim ids; the surface interaction
-gathers positions/normals/uv and builds the shading frame.  The BVH and
-instancing branches of the JAX package are not ported yet and raise.
+gathers positions/normals/uv and builds the shading frame.  With
+cfg.use_bvh the triangle casts walk the scene's width-8 BVH table
+(kernels/wide_bvh.py); the per-lane stack walks and instancing of the JAX
+package are not ported yet and raise.
 The JAX package fetches per-triangle attributes with a one-hot matmul (a
 TPU device); plain index gathers give the same values here.
 """
@@ -44,17 +46,50 @@ class Interaction(NamedTuple):
 
 
 def _unported(cfg):
-    if cfg.use_bvh:
-        raise NotImplementedError("BVH traversal is not ported yet "
-                                  "(use_bvh=True)")
     if getattr(cfg, "n_inst", 0) > 0:
         raise NotImplementedError("instancing is not ported yet (n_inst > 0)")
 
 
+def _bvh_casts(scene, cfg):
+    """(closest, any) cast functions over a WidePack for cfg.bvh_mode:
+    "pallas" is the hand-written kernel's wrapper (kernel on CUDA tensors,
+    plain version on CPU tensors), "packet" the plain walk on any device."""
+    from ..kernels import wide_bvh
+
+    if scene.bvh is None:
+        raise ValueError("cfg.use_bvh needs a scene built with bvh=True")
+
+    mode = cfg.bvh_mode if cfg.bvh_stackless else "stack"
+    if mode in ("stack", "stackless"):
+        raise NotImplementedError(
+            f"the per-lane BVH walk (bvh_mode={mode!r}) is not ported yet; "
+            "use bvh_mode='pallas' or 'packet'")
+    key = cfg.sort_key
+    if mode == "pallas":
+        return (lambda p, o, d, t: wide_bvh.wide_closest_hit(p, o, d, t,
+                                                             sort_key=key),
+                lambda p, o, d, t: wide_bvh.wide_any_hit(p, o, d, t,
+                                                         sort_key=key))
+    if mode == "packet":
+        return (wide_bvh.wide_closest_hit_reference,
+                wide_bvh.wide_any_hit_reference)
+    raise ValueError(f"unknown bvh_mode {mode!r}")
+
+
+def _merge_tri_hit(th, prim_of, t_best, hit, kind, prim, bary):
+    better = th.hit & (th.t < t_best)
+    return (torch.where(better, th.t, t_best), hit | better,
+            torch.where(better, PRIM_TRI, kind),
+            torch.where(better, prim_of(th.tri), prim),
+            torch.where(better[..., None], th.b, bary))
+
+
 def scene_intersect(scene, cfg, o, d, t_max):
-    """Closest hit across triangles and spheres.  With cfg.use_pallas the
-    triangle cast goes through the hand-written kernel's wrapper
-    (kernels/closest_hit.py)."""
+    """Closest hit across triangles and spheres.  With cfg.use_bvh the
+    triangle cast walks the BVH (a few huge triangles kept out of the tree
+    are brute-forced first, and their hit t caps the walk); else with
+    cfg.use_pallas the brute-force cast goes through the hand-written
+    kernel's wrapper (kernels/closest_hit.py)."""
     _unported(cfg)
     n = o.shape[0]
     dev = o.device
@@ -63,23 +98,30 @@ def scene_intersect(scene, cfg, o, d, t_max):
     kind = torch.full((n,), PRIM_NONE, dtype=torch.int32, device=dev)
     prim = torch.zeros((n,), dtype=torch.int32, device=dev)
     bary = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    state = (t_best, hit, kind, prim, bary)
 
     if cfg.n_tris > 0:
-        if getattr(cfg, "use_pallas", False):
+        if cfg.use_bvh:
+            if getattr(cfg, "n_big", 0) > 0:
+                big = scene.big_tri_idx
+                bh = intersect.closest_triangle_hit(
+                    o, d, state[0], scene.geom.vertices,
+                    scene.geom.triangles[big.long()])
+                state = _merge_tri_hit(bh, lambda i: big[i.long()], *state)
+            closest, _ = _bvh_casts(scene, cfg)
+            th = closest(scene.bvh.wide, o.contiguous(), d.contiguous(),
+                         state[0].contiguous())
+        elif getattr(cfg, "use_pallas", False):
             from ..kernels.closest_hit import closest_hit, tri_soa_from_mesh
 
             soa = tri_soa_from_mesh(scene.geom.vertices, scene.geom.triangles)
             th = closest_hit(o.contiguous(), d.contiguous(),
-                             t_best.contiguous(), soa)
+                             state[0].contiguous(), soa)
         else:
             th = intersect.closest_triangle_hit(
-                o, d, t_best, scene.geom.vertices, scene.geom.triangles)
-        better = th.hit & (th.t < t_best)
-        t_best = torch.where(better, th.t, t_best)
-        hit = hit | better
-        kind = torch.where(better, PRIM_TRI, kind)
-        prim = torch.where(better, th.tri, prim)
-        bary = torch.where(better[..., None], th.b, bary)
+                o, d, state[0], scene.geom.vertices, scene.geom.triangles)
+        state = _merge_tri_hit(th, lambda i: i, *state)
+    t_best, hit, kind, prim, bary = state
 
     if cfg.n_sphs > 0:
         sh = intersect.closest_sphere_hit(
@@ -94,14 +136,27 @@ def scene_intersect(scene, cfg, o, d, t_max):
 
 
 def scene_occluded(scene, cfg, o, d, t_max):
-    """Any-hit (shadow ray).  Plain PyTorch: the JAX package's brute-force
-    any-hit is XLA code too, not a TPU kernel."""
+    """Any-hit (shadow ray).  With cfg.use_bvh the triangle cast walks the
+    BVH; lanes that a big triangle already occludes skip the walk
+    (t_max = 0).  The brute-force any-hit is plain PyTorch: it is XLA code in
+    the JAX package too, not a TPU kernel."""
     _unported(cfg)
     n = o.shape[0]
     occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
     if cfg.n_tris > 0:
-        occ = occ | intersect.any_triangle_hit(
-            o, d, t_max, scene.geom.vertices, scene.geom.triangles)
+        if cfg.use_bvh:
+            t_walk = intersect._lane_t_max(t_max, n, o.device)
+            if getattr(cfg, "n_big", 0) > 0:
+                occ = occ | intersect.any_triangle_hit(
+                    o, d, t_max, scene.geom.vertices,
+                    scene.geom.triangles[scene.big_tri_idx.long()])
+                t_walk = torch.where(occ, 0.0, t_walk)
+            _, any_hit = _bvh_casts(scene, cfg)
+            occ = occ | any_hit(scene.bvh.wide, o.contiguous(), d.contiguous(),
+                                t_walk.contiguous())
+        else:
+            occ = occ | intersect.any_triangle_hit(
+                o, d, t_max, scene.geom.vertices, scene.geom.triangles)
     if cfg.n_sphs > 0:
         ok, _ = intersect.ray_spheres(o, d, t_max, scene.geom.sph_center,
                                       scene.geom.sph_radius)
@@ -239,6 +294,85 @@ def _finish_interaction(scene, cfg, o, d, hit, p_tri, p_err_tri, ng_tri,
 
 def _rsqrt(x):
     return 1.0 / torch.sqrt(torch.clamp(x, min=1e-24))
+
+
+def triangle_dpduv(scene, hit: Hit):
+    """Parametric partials dpdu/dpdv of the hit triangle from its UV chart."""
+    g = scene.geom
+    tri_idx = torch.where(hit.kind == PRIM_TRI, hit.prim, 0)
+    tri, p0, p1, p2 = _tri_vertices(g, tri_idx)
+    if g.uvs is not None:
+        uv0, uv1, uv2 = g.uvs[tri[:, 0]], g.uvs[tri[:, 1]], g.uvs[tri[:, 2]]
+    else:
+        uv0 = torch.zeros((tri.shape[0], 2), dtype=torch.float32,
+                          device=p0.device)
+        uv1 = torch.tensor([1.0, 0.0], device=p0.device).expand_as(uv0)
+        uv2 = torch.tensor([1.0, 1.0], device=p0.device).expand_as(uv0)
+    duv02 = uv0 - uv2
+    duv12 = uv1 - uv2
+    dp02 = p0 - p2
+    dp12 = p1 - p2
+    det = duv02[:, 0] * duv12[:, 1] - duv02[:, 1] * duv12[:, 0]
+    ok = torch.abs(det) > 1e-12
+    inv = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)[:, None]
+    dpdu = (duv12[:, 1:2] * dp02 - duv02[:, 1:2] * dp12) * inv
+    dpdv = (-duv12[:, 0:1] * dp02 + duv02[:, 0:1] * dp12) * inv
+    # degenerate chart: orthonormal fallback
+    ng = normalize(cross(dp02, dp12), eps=1e-20)
+    fb_u, fb_v = coordinate_system(ng)
+    bad = ~ok[:, None]
+    return torch.where(bad, fb_u, dpdu), torch.where(bad, fb_v, dpdv)
+
+
+def compute_differentials(p, n, dpdu, dpdv, rd, return_dp=False):
+    """Texture-space footprint of a camera ray: intersect the two auxiliary
+    rays with the tangent plane, then solve the 2x2 system for (du,dv) per
+    axis.
+
+    rd: camera.RayDifferentials.  Returns (duvdx (N,2), duvdy (N,2)); with
+    return_dp also (dpdx (N,3), dpdy (N,3)), the surface footprint."""
+    d_plane = dot(n, p)
+
+    def aux(o_a, d_a):
+        denom = dot(n, d_a)
+        small = torch.abs(denom) < 1e-9
+        t = -(dot(n, o_a) - d_plane) / torch.where(
+            small, torch.where(denom < 0, -1e-9, 1e-9), denom)
+        return o_a + t[:, None] * d_a, ~small
+
+    px, okx = aux(rd.rx_o, rd.rx_d)
+    py, oky = aux(rd.ry_o, rd.ry_d)
+    dpdx = px - p
+    dpdy = py - p
+
+    # choose the two coordinate dims where |n| is smallest
+    an = torch.abs(n)
+    use_yz = (an[:, 0] > an[:, 1]) & (an[:, 0] > an[:, 2])
+    use_xz = ~use_yz & (an[:, 1] > an[:, 2])
+
+    def pick2(v):
+        a = torch.where(use_yz, v[:, 1], v[:, 0])
+        b = torch.where(use_yz | use_xz, v[:, 2], v[:, 1])
+        return a, b
+
+    a00, a10 = pick2(dpdu)
+    a01, a11 = pick2(dpdv)
+    det = a00 * a11 - a01 * a10
+    ok = torch.abs(det) > 1e-12
+    inv = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+
+    def solve(b):
+        b0, b1 = pick2(b)
+        du = (a11 * b0 - a01 * b1) * inv
+        dv = (a00 * b1 - a10 * b0) * inv
+        return torch.stack([du, dv], -1)
+
+    duvdx = torch.where(okx[:, None], solve(dpdx), 0.0)
+    duvdy = torch.where(oky[:, None], solve(dpdy), 0.0)
+    if return_dp:
+        return (duvdx, duvdy, torch.where(okx[:, None], dpdx, 0.0),
+                torch.where(oky[:, None], dpdy, 0.0))
+    return duvdx, duvdy
 
 
 def to_local(it: Interaction, v):

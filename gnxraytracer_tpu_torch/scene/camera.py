@@ -2,8 +2,8 @@
 
 The raster->screen->camera->world chain is precomputed host-side (numpy
 float64) into one 4x4 raster-to-camera matrix plus the camera-to-world
-matrix; ray generation is a batched tensor op.  Ray differentials wait for
-the textured scenes.
+matrix; ray generation is a batched tensor op.  Ray differentials (the
++1-pixel auxiliary rays) feed the filtered texture lookups.
 """
 
 from typing import NamedTuple
@@ -179,7 +179,32 @@ def generate_rays(camera: Camera, p_film, time_u, p_lens_u):
     return o_world, d_world, time
 
 
+class RayDifferentials(NamedTuple):
+    """Auxiliary +1-pixel rays."""
+    rx_o: torch.Tensor  # (N,3)
+    rx_d: torch.Tensor
+    ry_o: torch.Tensor
+    ry_d: torch.Tensor
+
+
 def generate_ray_differentials(camera: Camera, p_film, time_u, p_lens_u):
-    raise NotImplementedError(
-        "ray differentials are not ported yet (they serve filtered texture "
-        "lookups, which the ported scenes do not have)")
+    """Batched GenerateRayDifferential: offset p_film by one pixel in x and
+    y; the same lens sample is reused for the auxiliary rays.
+
+    Returns (o, d, time, RayDifferentials)."""
+    o, d, time = generate_rays(camera, p_film, time_u, p_lens_u)
+    dx = torch.tensor([1.0, 0.0], dtype=p_film.dtype, device=p_film.device)
+    dy = torch.tensor([0.0, 1.0], dtype=p_film.dtype, device=p_film.device)
+    rx_o, rx_d, _ = generate_rays(camera, p_film + dx, time_u, p_lens_u)
+    ry_o, ry_d, _ = generate_rays(camera, p_film + dy, time_u, p_lens_u)
+    return o, d, time, RayDifferentials(rx_o, rx_d, ry_o, ry_d)
+
+
+def scale_differentials(o, d, rd: RayDifferentials, s):
+    """Shrink the one-pixel offsets by s = 1/sqrt(spp)."""
+    return RayDifferentials(
+        rx_o=o + (rd.rx_o - o) * s,
+        rx_d=d + (rd.rx_d - d) * s,
+        ry_o=o + (rd.ry_o - o) * s,
+        ry_d=d + (rd.ry_d - d) * s,
+    )

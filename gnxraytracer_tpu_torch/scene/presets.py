@@ -1,9 +1,11 @@
 """Scene presets replicating the reference renderer's hardcoded scenes:
-the Cornell box with its two-triangle area light and skybox, and the
-single-sphere point-light scene.  The presets that need Disney / microfacet
-materials, a BVH, textures, an environment map or media are not ported
-yet.
+the Cornell box with its two-triangle area light and skybox (optionally with
+a mesh behind a BVH), the single-sphere point-light scene, and the
+environment-lit textured mesh scene.  The presets that need media or
+instancing are not ported yet.
 """
+
+import os
 
 import numpy as np
 
@@ -110,4 +112,83 @@ def sphere_point_light(width=64, height=64, device="cuda"):
     scene = b.build(device=device)
     cam = make_perspective_camera(width, height, eye=(0.0, 0.0, 5.0),
                                   look=(0.0, 0.0, 0.0), device=device)
+    return scene, cam
+
+
+def _rot_x(deg):
+    r = np.deg2rad(deg)
+    c, s = np.cos(r), np.sin(r)
+    m = np.eye(4)
+    m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, -s, s, c
+    return m
+
+
+def _rot_y(deg):
+    r = np.deg2rad(deg)
+    c, s = np.cos(r), np.sin(r)
+    m = np.eye(4)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, s, -s, c
+    return m
+
+
+def _resource(name):
+    """Path of a reference-renderer asset under $GNX_RESOURCES, or None when
+    the variable is unset (the presets then take their in-code fallbacks)."""
+    root = os.environ.get("GNX_RESOURCES")
+    return os.path.join(root, name) if root else None
+
+
+def envmap_mesh(width=500, height=500, hdr_path=None, mesh=None,
+                mesh_tris=104_882, texture_path=None, device="cuda"):
+    """The mesh scene: a ~dragon-scale blob mesh with a Disney material via
+    the BVH, an image-textured ground plane (filtered texture lookups), and
+    an HDR environment light with LightToWorld = RotateX(20) * RotateY(-90) *
+    RotateX(-90).
+
+    hdr_path / texture_path default to MonValley1000.hdr and
+    awesomeface.jpg under $GNX_RESOURCES.  Where a file is absent the scene
+    falls back to a skybox light / a checker texture."""
+    if hdr_path is None:
+        hdr_path = _resource("MonValley1000.hdr")
+    if texture_path is None:
+        texture_path = _resource("awesomeface.jpg")
+    b = SceneBuilder()
+    mat = b.add_disney((0.6, 0.5, 0.45), rough_u=0.35, metallic=0.1)
+    if mesh is None:
+        from .loaders import make_blob_mesh
+
+        n_seg = max(8, int(round((mesh_tris / 2) ** 0.5)))
+        v, t, n, uv = make_blob_mesh(n_seg)
+        b.add_mesh(v, t, mat, transform=_translate([0.0, -0.5, 0.0]),
+                   normals=n, uvs=uv)
+    else:
+        v, t = mesh
+        b.add_mesh(v, t, mat, transform=_translate([0.0, -0.5, 0.0]))
+    # textured ground plane
+    if texture_path is not None and os.path.exists(texture_path):
+        from ..utils.image import load_image
+
+        tex = b.add_texture(load_image(texture_path, gamma=True))
+    else:
+        y, x = np.mgrid[0:128, 0:128]
+        tex = b.add_texture(
+            0.2 + 0.6 * np.stack([(((x // 16) + (y // 16)) % 2).astype(np.float32)] * 3, -1))
+    floor_mat = b.add_matte((1.0, 1.0, 1.0), sigma=0.0, kd_tex=tex)
+    g = 6.0
+    gv = np.array([[-g, -1.7, g], [g, -1.7, g], [-g, -1.7, -g],
+                   [g, -1.7, g], [g, -1.7, -g], [-g, -1.7, -g]], np.float32)
+    guv = np.array([[0, 0], [4, 0], [0, 4], [4, 0], [4, 4], [0, 4]],
+                   np.float32)
+    b.add_mesh(gv, np.arange(6).reshape(2, 3), floor_mat, uvs=guv)
+    if hdr_path is not None and os.path.exists(hdr_path):
+        from ..utils.image import load_image
+
+        img = load_image(hdr_path)
+        l2w = _rot_x(20) @ _rot_y(-90) @ _rot_x(-90)
+        b.set_environment(img, light_to_world=l2w)
+    else:
+        b.add_skybox_light()
+    scene = b.build(bvh=True, device=device)
+    cam = make_perspective_camera(width, height, eye=(0.0, 0.8, 5.0),
+                                  look=(0.0, -0.3, 0.0), device=device)
     return scene, cam

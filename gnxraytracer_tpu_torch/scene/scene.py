@@ -5,10 +5,10 @@ into the material / light tables and hit records gather per-hit parameters
 by id.  Field names are those of the JAX package's scene tables, so state
 carries across by name (see convert.py).
 
-Ported so far: triangle meshes, spheres, matte / mirror / smooth-glass
-materials, point / spot / distant / area / skybox lights.  The BVH build,
-textures, the environment map, media and instancing raise
-NotImplementedError.
+Ported so far: triangle meshes, spheres, every material kind, point / spot /
+distant / area / environment-map / skybox lights, image textures, and the SAH
+BVH build (with big-prim separation).  The LBVH build, media and instancing
+raise NotImplementedError.
 """
 
 from typing import NamedTuple, Optional
@@ -94,6 +94,24 @@ class LightTable(NamedTuple):
     scale: torch.Tensor      # (L,) extra radiance scale
 
 
+class EnvMap(NamedTuple):
+    """Environment-map light + its importance-sampling CDFs."""
+    image: torch.Tensor          # (H,W,3) radiance texels
+    cond_func: torch.Tensor      # Distribution2D pieces over luminance*sin
+    cond_cdf: torch.Tensor
+    cond_int: torch.Tensor
+    marg_cdf: torch.Tensor
+    marg_int: torch.Tensor
+    world_to_light: torch.Tensor  # (4,4)
+    light_to_world: torch.Tensor  # (4,4)
+    # the JAX package's inverse-CDF jump table; always None here (see
+    # ops/sampling.Distribution2D)
+    cond_inv: object = None
+    # (H, W, 4) [r, g, b, cond_func/marg_int] packed so the escaped-ray MIS
+    # path fetches Le AND the map pdf numerator with ONE per-lane gather
+    le_func: Optional[torch.Tensor] = None
+
+
 _INT_MATERIAL_COLS = ("kind", "kd_tex", "bump_tex")
 _INT_LIGHT_COLS = ("kind", "tri")
 
@@ -102,19 +120,21 @@ class Scene(NamedTuple):
     geom: Geometry
     materials: MaterialTable
     lights: LightTable
-    env: Optional[tuple]       # environment map: not ported, always None
-    textures: Optional[tuple]  # texture atlas: not ported, always None
+    env: Optional[EnvMap]
+    textures: Optional[tuple]  # (atlas, level offsets, level sizes) or None
     media: Optional[tuple]     # participating media: not ported, always None
     camera_medium: int
     world_center: torch.Tensor  # (3,)
     world_radius: torch.Tensor  # ()
-    bvh: Optional[tuple]  # BVH arrays: not ported, None -> brute force
+    bvh: Optional[tuple]  # BVH tables (ops/bvh.py) or None -> brute force
     light_dist: Optional[tuple] = None
     instanced: Optional[tuple] = None
     # power-strategy selection pmf, precomputed at build.  Frozen w.r.t.
     # emission updates, which keeps the estimator unbiased (any fixed pmf
     # does) and the selection pdf detached for gradients.
     light_pmf: Optional[torch.Tensor] = None
+    # big-prim separation (ops/bvh.build_bvh subset): global ids of huge
+    # triangles kept OUT of the BVH and brute-forced by scene_intersect
     big_tri_idx: Optional[torch.Tensor] = None
 
     @property
@@ -165,6 +185,8 @@ class SceneBuilder:
         self.sph = []  # (center, radius, mat, light, medium)
         self.materials = []  # dicts
         self.lights = []  # dicts
+        self.textures = []  # host images for the mip atlas
+        self.env = None
         self.camera_medium = -1
         self._vtx_count = 0
         self._has_normals = False
@@ -178,15 +200,8 @@ class SceneBuilder:
     def add_grid_medium(self, *a, **kw):
         raise NotImplementedError("participating media are not ported yet")
 
-    def add_texture(self, image):
-        raise NotImplementedError("image textures are not ported yet")
-
     def add_instances(self, *a, **kw):
         raise NotImplementedError("instancing is not ported yet")
-
-    def set_environment(self, image, light_to_world=None, scale=1.0):
-        raise NotImplementedError(
-            "the environment-map light is not ported yet")
 
     # -- materials -----------------------------------------------------------
 
@@ -205,9 +220,13 @@ class SceneBuilder:
         self.materials.append(m)
         return len(self.materials) - 1
 
+    def add_texture(self, image):
+        """Register an image texture; returns a texture id usable as kd_tex
+        on any material."""
+        self.textures.append(np.asarray(image, np.float32))
+        return len(self.textures) - 1
+
     def add_matte(self, kd, sigma=0.0, kd_tex=-1):
-        if kd_tex != -1:
-            raise NotImplementedError("image textures are not ported yet")
         return self.add_material(MAT_MATTE, kd=kd, sigma=sigma, kd_tex=kd_tex)
 
     def add_mirror(self, kr=(0.9, 0.9, 0.9)):
@@ -217,6 +236,9 @@ class SceneBuilder:
                   rough_u=0.0, rough_v=0.0):
         return self.add_material(MAT_GLASS, kr=kr, kt=kt, eta=eta,
                                  rough_u=rough_u, rough_v=rough_v)
+
+    def add_disney(self, color, **kw):
+        return self.add_material(MAT_DISNEY, kd=color, **kw)
 
     # -- geometry ------------------------------------------------------------
 
@@ -294,13 +316,20 @@ class SceneBuilder:
         renderer's behaviour when its image fails to load)."""
         return self._light(LIGHT_SKYBOX, scale=scale)
 
+    def set_environment(self, image, light_to_world=None, scale=1.0):
+        """Environment-map light from an equirect (H,W,3) radiance image."""
+        self.env = (np.asarray(image, np.float32) * scale, light_to_world)
+        return self._light(LIGHT_INFINITE)
+
     # -- freeze --------------------------------------------------------------
 
     def build(self, bvh=False, device="cuda"):
-        if bvh:
-            raise NotImplementedError(
-                "the BVH build is not ported yet; build(bvh=False) casts by "
-                "brute force")
+        """Freeze into a Scene on `device`.  bvh: False (brute-force casts),
+        True or "sah" (host SAH build, ops/bvh.build_bvh); "lbvh" is not
+        ported yet."""
+        if bvh == "lbvh":
+            raise NotImplementedError("the LBVH build is not ported yet; use "
+                                      "build(bvh=True) for the SAH build")
         dev = resolve_device(device)
 
         def put(a):
@@ -380,12 +409,65 @@ class SceneBuilder:
         center = (lo + hi) / 2
         radius = float(np.linalg.norm(hi - center))
 
+        env = None
+        if self.env is not None:
+            from ..ops.sampling import make_distribution2d
+
+            img, l2w = self.env
+            if l2w is None:
+                l2w = np.eye(4, dtype=np.float32)
+            h, w = img.shape[:2]
+            # luminance * sin(theta) importance image
+            lum = img @ np.asarray([0.212671, 0.715160, 0.072169], np.float32)
+            sin_theta = np.sin(np.pi * (np.arange(h) + 0.5) / h).astype(np.float32)
+            d2 = make_distribution2d(put(lum * sin_theta[:, None]))
+            lf = torch.cat(
+                [put(img), (d2.cond_func / torch.clamp(d2.marg_int, min=1e-20)
+                            )[..., None]], dim=-1)
+            env = EnvMap(
+                image=put(img),
+                cond_func=d2.cond_func, cond_cdf=d2.cond_cdf,
+                cond_int=d2.cond_int, marg_cdf=d2.marg_cdf,
+                marg_int=d2.marg_int,
+                world_to_light=put(np.linalg.inv(l2w).astype(np.float32)),
+                light_to_world=put(np.asarray(l2w, np.float32)),
+                le_func=lf,
+            )
+
+        textures = None
+        if self.textures:
+            from ..ops.texture import build_texture_atlas
+
+            textures = build_texture_atlas(self.textures, device=dev)
+
+        bvh_tables = None
+        big_idx = None
+        if bvh:
+            from ..ops.bvh import build_bvh
+
+            # big-prim separation: a few huge triangles (a ground plane)
+            # would sit in every ray's node set; they stay out of the tree
+            # and are brute-forced by the casts instead
+            subset = None
+            if len(tris) > 4096:
+                e1 = verts[tris[:, 1]] - verts[tris[:, 0]]
+                e2 = verts[tris[:, 2]] - verts[tris[:, 0]]
+                areas = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=1)
+                med = np.median(areas[areas > 0]) if (areas > 0).any() else 0
+                big = areas > 1000.0 * max(med, 1e-20)
+                if 0 < int(big.sum()) <= 64:
+                    big_idx = np.nonzero(big)[0]
+                    subset = np.nonzero(~big)[0]
+            bvh_tables = build_bvh(verts, tris, subset=subset, device=dev)
+
         scene = Scene(
-            geom=geom, materials=mat, lights=lights, env=None, textures=None,
-            media=None, camera_medium=self.camera_medium,
+            geom=geom, materials=mat, lights=lights, env=env,
+            textures=textures, media=None, camera_medium=self.camera_medium,
             world_center=torch.tensor(center, dtype=torch.float32, device=dev),
             world_radius=torch.tensor(max(radius, 1e-3), dtype=torch.float32,
                                       device=dev),
-            bvh=None,
+            bvh=bvh_tables,
+            big_tri_idx=(None if big_idx is None
+                         else put(big_idx.astype(np.int32))),
         )
         return with_light_pmf(scene)

@@ -1,9 +1,9 @@
-"""Image export and tonemapping.
+"""Image IO and tonemapping.
 
 The film stays linear HDR (correct for parity and gradients); tonemapping
 happens only at export, with the reference renderer's exposure curve for
-visual comparison.  The HDR / image loaders of the JAX package wait for the
-textured and environment-lit scenes.
+visual comparison.  Loaders: Radiance RGBE (.hdr) environment maps and LDR
+texture images.
 """
 
 import numpy as np
@@ -39,3 +39,80 @@ def save_png(path, img, tonemap="reference"):
 
         imageio.imwrite(path, arr)
     return path
+
+
+def load_hdr(path):
+    """Radiance RGBE (.hdr) decoder -> float32 (H,W,3) linear radiance.
+
+    Written from the public RGBE spec.  Handles new-style RLE scanlines and
+    flat data.
+    """
+    with open(path, "rb") as f:
+        data = f.read()
+    # header ends at the first blank line
+    pos = 0
+    while True:
+        eol = data.index(b"\n", pos)
+        line = data[pos:eol]
+        pos = eol + 1
+        if line == b"":
+            break
+    # resolution line, e.g. "-Y 500 +X 1000"
+    eol = data.index(b"\n", pos)
+    res = data[pos:eol].split()
+    pos = eol + 1
+    height = int(res[1])
+    width = int(res[3])
+    body = np.frombuffer(data, np.uint8, offset=pos)
+
+    rgbe = np.zeros((height, width, 4), np.uint8)
+    if width < 8 or width > 0x7FFF or body[0] != 2 or body[1] != 2:
+        # flat (non-RLE) data
+        rgbe = body[: height * width * 4].reshape(height, width, 4)
+    else:
+        off = 0
+        for y in range(height):
+            if body[off] != 2 or body[off + 1] != 2:
+                raise ValueError(f"{path}: bad RLE scanline header at row {y}")
+            off += 4  # 0x02 0x02 + 2-byte width
+            for c in range(4):
+                x = 0
+                while x < width:
+                    count = int(body[off])
+                    off += 1
+                    if count > 128:  # run
+                        rgbe[y, x: x + count - 128, c] = body[off]
+                        off += 1
+                        x += count - 128
+                    else:  # literal
+                        rgbe[y, x: x + count, c] = body[off: off + count]
+                        off += count
+                        x += count
+    e = rgbe[..., 3].astype(np.int32)
+    scale = np.where(e == 0, 0.0, np.ldexp(1.0, e - 136)).astype(np.float32)
+    return rgbe[..., :3].astype(np.float32) * scale[..., None]
+
+
+def load_image(path, gamma=True, flip_v=False):
+    """Load LDR/HDR image as float32 (H,W,3) linear.
+
+    LDR images are gamma-decoded (sRGB to linear); HDR (.hdr) files go
+    through load_hdr (imageio tone-maps .hdr to uint8, losing radiance).
+    """
+    if path.lower().endswith(".hdr"):
+        arr = load_hdr(path)
+        if flip_v:
+            arr = arr[::-1]
+        return arr
+    import imageio.v2 as imageio
+
+    arr = np.asarray(imageio.imread(path)).astype(np.float32)
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, -1)
+    arr = arr[..., :3]
+    arr = arr / 255.0
+    if gamma:
+        arr = np.where(arr <= 0.04045, arr / 12.92, ((arr + 0.055) / 1.055) ** 2.4)
+    if flip_v:
+        arr = arr[::-1]
+    return arr

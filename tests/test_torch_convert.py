@@ -17,12 +17,15 @@ import torch
 from gnxraytracer_tpu.models.integrators import path as J_path
 from gnxraytracer_tpu.ops import samplers as J_smp
 from gnxraytracer_tpu.scene import camera as J_cam
+from gnxraytracer_tpu.scene import loaders as J_load
 from gnxraytracer_tpu.scene import presets as J_presets
 from gnxraytracer_tpu.scene import scene as J_scene
 from gnxraytracer_tpu_torch import convert
 from gnxraytracer_tpu_torch.models.integrators import path as T_path
 from gnxraytracer_tpu_torch.ops import samplers as T_smp
+from gnxraytracer_tpu_torch.ops import wbvh as T_wbvh
 from gnxraytracer_tpu_torch.scene import camera as T_cam
+from gnxraytracer_tpu_torch.scene import loaders as T_load
 from gnxraytracer_tpu_torch.scene import presets as T_presets
 from gnxraytracer_tpu_torch.scene import scene as T_scene
 
@@ -58,9 +61,67 @@ def _fill_mixed(b, presets):
     b.add_skybox_light()
 
 
+def procedural_hdr(h=32, w=64):
+    """A small equirect radiance image with a bright patch, so that the
+    environment light has something to importance-sample."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([0.3 + 0.2 * np.sin(x / 7.0), 0.4 + 0.3 * np.cos(y / 5.0),
+                    0.6 + 0.1 * np.sin((x + y) / 9.0)], -1)
+    img[5:8, 20:24] += 40.0
+    return img.astype(np.float32)
+
+
+def _fill_mesh(b, presets, load, n_seg=8):
+    """A small twin of presets.envmap_mesh through either package's builder:
+    a Disney blob with normals and uvs, the checker-textured floor, and an
+    HDR environment light from an in-code image."""
+    mat = b.add_disney((0.6, 0.5, 0.45), rough_u=0.35, metallic=0.1)
+    v, t, n, uv = load.make_blob_mesh(n_seg)
+    b.add_mesh(v, t, mat, transform=presets._translate([0.0, -0.5, 0.0]),
+               normals=n, uvs=uv)
+    y, x = np.mgrid[0:128, 0:128]
+    tex = b.add_texture(0.2 + 0.6 * np.stack(
+        [(((x // 16) + (y // 16)) % 2).astype(np.float32)] * 3, -1))
+    floor_mat = b.add_matte((1.0, 1.0, 1.0), sigma=0.0, kd_tex=tex)
+    g = 6.0
+    gv = np.array([[-g, -1.7, g], [g, -1.7, g], [-g, -1.7, -g],
+                   [g, -1.7, g], [g, -1.7, -g], [-g, -1.7, -g]], np.float32)
+    guv = np.array([[0, 0], [4, 0], [0, 4], [4, 0], [4, 4], [0, 4]],
+                   np.float32)
+    b.add_mesh(gv, np.arange(6).reshape(2, 3), floor_mat, uvs=guv)
+    b.set_environment(procedural_hdr(), light_to_world=(
+        presets._rot_x(20) @ presets._rot_y(-90) @ presets._rot_x(-90)))
+
+
+def mesh_pair(w=32, h=32, n_seg=8):
+    """The mesh twin built with a BVH by each package's own builder.  With
+    n_seg >= 46 the mesh has more than 4096 triangles and the floor's two
+    are kept out of the tree (big-prim separation)."""
+    jb, tb = J_scene.SceneBuilder(), T_scene.SceneBuilder()
+    _fill_mesh(jb, J_presets, J_load, n_seg)
+    _fill_mesh(tb, T_presets, T_load, n_seg)
+    kw = dict(eye=(0.0, 0.8, 5.0), look=(0.0, -0.3, 0.0))
+    return (jb.build(bvh=True), J_cam.make_perspective_camera(w, h, **kw),
+            tb.build(bvh=True, device="cpu"),
+            T_cam.make_perspective_camera(w, h, device="cpu", **kw))
+
+
 def scene_pair(name, w=32, h=32):
     """(JAX scene, JAX camera, torch scene, torch camera), each built by its
     own package."""
+    if name == "mesh":
+        return mesh_pair(w, h)
+    if name == "mesh_big":
+        return mesh_pair(w, h, n_seg=46)
+    if name == "cornell_mesh_bvh":
+        return (*J_presets.cornell_box(w, h, mesh=J_load.make_test_mesh(2),
+                                       bvh=True),
+                *T_presets.cornell_box(w, h, mesh=T_load.make_test_mesh(2),
+                                       bvh=True, device="cpu"))
+    if name == "envmap_preset":  # no assets: checker texture and skybox
+        mesh = J_load.make_blob_mesh(8)[:2]
+        return (*J_presets.envmap_mesh(w, h, mesh=mesh),
+                *T_presets.envmap_mesh(w, h, mesh=mesh, device="cpu"))
     if name == "cornell":
         return (*J_presets.cornell_box(w, h),
                 *T_presets.cornell_box(w, h, device="cpu"))
@@ -79,21 +140,36 @@ def scene_pair(name, w=32, h=32):
 
 
 # every table is host-side numpy data put on the device, and so equal bit for
-# bit, except the power pmf, which each package computes in f32 with its own
-# cos() and summation order (a last-ulp difference)
-COMPUTED_ON_DEVICE = ("scene.light_pmf",)
+# bit, except the power pmf and the environment map's distribution tables,
+# which each package computes in f32 on the device with its own cos() and
+# summation order (a last-ulp difference)
+COMPUTED_ON_DEVICE = ("scene.light_pmf", "scene.env.cond_func",
+                      "scene.env.cond_cdf", "scene.env.cond_int",
+                      "scene.env.marg_cdf", "scene.env.marg_int",
+                      "scene.env.le_func")
+# the JAX package's TPU-only tables, which the port does not carry
+TPU_ONLY = ("scene.env.cond_inv", "scene.bvh.treelets", "scene.bvh.wtreelets")
 
 
 def assert_tables_equal(ours, theirs, path=""):
     """Port table (tensors) == JAX-package table (numpy leaves), field by
     field: same None-ness, dtype, shape and values (COMPUTED_ON_DEVICE
     fields to rtol 1e-6)."""
+    if path in TPU_ONLY:
+        return
     if theirs is None or ours is None:
         assert ours is None and theirs is None, path
     elif isinstance(ours, tuple) and hasattr(ours, "_fields"):
         for f in theirs._fields:
-            assert_tables_equal(getattr(ours, f), getattr(theirs, f),
-                                f"{path}.{f}")
+            if f"{path}.{f}" not in TPU_ONLY:
+                assert_tables_equal(getattr(ours, f), getattr(theirs, f),
+                                    f"{path}.{f}")
+        if path == "scene.bvh":
+            assert_wide_pack_is_made_from(ours)
+    elif isinstance(ours, tuple):  # the texture atlas: a plain tuple
+        assert len(ours) == len(theirs), path
+        for i, (a, b) in enumerate(zip(ours, theirs)):
+            assert_tables_equal(a, b, f"{path}[{i}]")
     elif torch.is_tensor(ours):
         theirs = np.asarray(theirs)
         assert ours.numpy().dtype == theirs.dtype, (path, ours.dtype,
@@ -108,7 +184,18 @@ def assert_tables_equal(ours, theirs, path=""):
         assert ours == theirs, (path, ours, theirs)
 
 
-SCENES = ["cornell", "sphere", "mixed"]
+def assert_wide_pack_is_made_from(bvh):
+    """The width-8 table of a BVH is the GPU pack of its binary tables."""
+    want = T_wbvh.build_wide_pack(
+        *(getattr(bvh, f).numpy() for f in (
+            "offset", "n_prims", "axis", "bounds_lo", "bounds_hi", "prim_idx",
+            "leaf_soa")))
+    for a, b in zip(bvh.wide, want):
+        assert torch.equal(a, b) if torch.is_tensor(a) else a == b
+
+
+SCENES = ["cornell", "sphere", "mixed", "mesh", "mesh_big", "cornell_mesh_bvh",
+          "envmap_preset"]
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -135,6 +222,11 @@ def test_make_config_equal_and_cfg_from_dict(name):
     kw = dict(spp=8, max_depth=8, spp_chunk=4, fast_mis=True,
               compact_tail=True, compact_stages=((2, 2), (5, 8)),
               count_rays=True, light_strategy="power")
+    # the one default that differs: a scene built with a BVH casts through it
+    # in the port, while the JAX package brute-forces below 32k triangles (a
+    # threshold measured on the TPU), so the comparison names use_bvh
+    assert T_path.make_config(ts, 32, 32, **kw).use_bvh == (ts.bvh is not None)
+    kw["use_bvh"] = js.bvh is not None
     jcfg = J_path.make_config(js, 32, 32, **kw)
     tcfg = T_path.make_config(ts, 32, 32, **kw)
     assert tcfg._asdict() == jcfg._asdict()
@@ -162,10 +254,43 @@ def test_sampler_from_numpy(kind):
     assert got == want
 
 
+def test_mesh_scene_carries_bvh_env_textures_and_big_prims():
+    """What the mesh path adds to a scene crosses over: the BVH (binary
+    tables as they are, the width-8 table made from them), the environment
+    map, the texture atlas, and the ids of the triangles kept out of the
+    tree."""
+    js, _, ts, _ = scene_pair("mesh_big")
+    got = convert.scene_from_numpy(np_tree(js), device="cpu")
+    assert got.bvh is not None and got.env is not None
+    assert got.textures is not None and got.env.cond_inv is None
+    np.testing.assert_array_equal(got.big_tri_idx.numpy(),
+                                  np.asarray(js.big_tri_idx))
+    n_tris = int(js.geom.triangles.shape[0])
+    assert got.big_tri_idx.numpy().tolist() == [n_tris - 2, n_tris - 1]
+    assert got.bvh.treelets is None
+    # carried and own-built tables walk the same tree
+    for a, b in zip(got.bvh.wide, ts.bvh.wide):
+        assert torch.equal(a, b) if torch.is_tensor(a) else a == b
+    ids = got.bvh.wide.tid.numpy()
+    assert ids.max() == n_tris - 3 and (ids >= 0).sum() == n_tris - 2
+    cfg = T_path.make_config(got, 8, 8, spp=1)
+    assert cfg.use_bvh and cfg.n_big == 2 and cfg.has_env and cfg.has_textures
+    assert cfg.bvh_mode == "packet"  # CPU tensors: the plain walk
+
+
 def test_unported_state_is_refused():
+    b = J_scene.SceneBuilder()
+    med = b.add_homogeneous_medium((0.1, 0.1, 0.1), (0.5, 0.5, 0.5))
+    b.add_sphere((0, 0, 0), 1.0, b.add_matte((0.5, 0.5, 0.5)),
+                 medium=(med, -1))
+    b.add_point_light((0, 3, 0), (10, 10, 10))
+    with pytest.raises(NotImplementedError):
+        convert.scene_from_numpy(np_tree(b.build()), device="cpu")
+    # a tree without octant links (the on-device morton build)
     js, _ = J_presets.cornell_box(16, 16, bvh=True)
     with pytest.raises(NotImplementedError):
-        convert.scene_from_numpy(np_tree(js), device="cpu")
+        convert.bvh_from_numpy_tree(np_tree(js.bvh)._replace(first8=None),
+                                    device="cpu")
     with pytest.raises(NotImplementedError):
         convert.sampler_from_numpy(
             np_tree(J_smp.make_halton_sampler(4, 8, 8)), device="cpu")

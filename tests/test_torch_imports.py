@@ -18,9 +18,11 @@ import gnxraytracer_tpu_torch
 from gnxraytracer_tpu_torch import cli
 from gnxraytracer_tpu_torch.models import lights as T_lights
 from gnxraytracer_tpu_torch.models.integrators import path as T_path
+from gnxraytracer_tpu_torch.ops import bvh as T_bvh
 from gnxraytracer_tpu_torch.ops import samplers as T_smp
 from gnxraytracer_tpu_torch.ops import trace as T_trace
 from gnxraytracer_tpu_torch.scene import camera as T_cam
+from gnxraytracer_tpu_torch.scene import loaders as T_load
 from gnxraytracer_tpu_torch.scene import presets as T_presets
 from gnxraytracer_tpu_torch.scene import scene as T_scene
 from gnxraytracer_tpu_torch.utils.device import resolve_device
@@ -46,17 +48,24 @@ def port_sources():
 def test_every_module_is_found():
     mods = port_modules()
     for want in ("cli", "convert", "constants", "kernels.closest_hit",
-                 "kernels.build", "ops.trace", "ops.intersect", "ops.sobol",
-                 "models.integrators.path", "models.lights", "scene.presets",
-                 "utils.image"):
+                 "kernels.build", "kernels.wide_bvh", "native", "ops.trace",
+                 "ops.intersect", "ops.sobol", "ops.bvh", "ops.wbvh",
+                 "ops.texture", "ops.sampling", "models.integrators.path",
+                 "models.lights", "models.microfacet", "models.disney",
+                 "scene.presets", "scene.loaders", "utils.image"):
         assert f"gnxraytracer_tpu_torch.{want}" in mods
 
 
 def test_fresh_interpreter_imports_no_jax():
     """Import every module of the port (and chip_smoke.py) in a new
-    interpreter: jax and gnxraytracer_tpu stay out of sys.modules."""
+    interpreter: jax and gnxraytracer_tpu stay out of sys.modules, and
+    nothing is compiled (nvcc, g++) or loaded (ctypes) on the way."""
     code = (
-        "import sys, importlib\n"
+        "import sys, importlib, subprocess, ctypes\n"
+        "import torch\n"  # loads its own libraries with ctypes
+        "def refuse(*a, **kw):\n"
+        "    raise AssertionError('built or loaded at import: %r' % (a,))\n"
+        "subprocess.Popen = subprocess.run = ctypes.CDLL = refuse\n"
         "def banned(m):\n"
         "    top = m.split('.')[0]\n"
         "    return top in ('jax', 'jaxlib', 'gnxraytracer_tpu')\n"
@@ -68,6 +77,10 @@ def test_fresh_interpreter_imports_no_jax():
         "bad = sorted(m for m in sys.modules if banned(m))\n"
         "assert not bad, bad\n"
         "assert 'torch' in sys.modules\n"
+        "from gnxraytracer_tpu_torch import native\n"
+        "from gnxraytracer_tpu_torch.kernels import build, closest_hit, wide_bvh\n"
+        "assert build._libs == {} and build.build_log == {}\n"
+        "assert native._lib is None and wide_bvh._fns is None\n"
         "print('CLEAN', len(sys.modules))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, cwd=ROOT)
@@ -93,6 +106,56 @@ def test_source_names_no_jax(path):
                 f"{path}:{node.lineno} imports {n}"
 
 
+def test_build_paths_hash_headers_and_stay_in_the_ignored_directory(
+        tmp_path, monkeypatch):
+    """kernels/build.py names a library after its source AND the files under
+    csrc/ that it includes, so an edited header is rebuilt; the kernels and
+    the C++ BVH library all go to the one build directory, which
+    .gitignore lists."""
+    import shutil
+
+    from gnxraytracer_tpu_torch import native
+    from gnxraytracer_tpu_torch.kernels import build
+
+    for name in ("wide_bvh", "closest_hit"):
+        files = [os.path.basename(f) for f in build.source_files(name)]
+        assert files == sorted([name + ".cu", "watertight.cuh"])
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "sm_90a" in flags and "--fmad=false" in flags
+    assert "fast-math" not in flags
+    _, before = build._target("wide_bvh")
+    assert os.path.dirname(before) == build.BUILD_DIR
+    assert os.path.dirname(native.library_path()) == build.BUILD_DIR
+    rel = os.path.relpath(build.BUILD_DIR, ROOT).replace(os.sep, "/") + "/"
+    with open(os.path.join(ROOT, ".gitignore")) as f:
+        assert rel in [line.strip() for line in f]
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, copy)
+    monkeypatch.setattr(build, "CSRC_DIR", str(copy))
+    assert os.path.basename(build._target("wide_bvh")[1]) == \
+        os.path.basename(before)
+    with open(copy / "watertight.cuh", "a") as f:
+        f.write("// edited\n")
+    assert os.path.basename(build._target("wide_bvh")[1]) != \
+        os.path.basename(before)
+    assert os.path.basename(build._target("closest_hit")[1]) != \
+        os.path.basename(build._target("wide_bvh")[1])
+
+
+def test_kernel_sources_have_the_entry_points_the_wrappers_bind():
+    from gnxraytracer_tpu_torch.kernels import build
+
+    with open(os.path.join(build.CSRC_DIR, "wide_bvh.cu")) as f:
+        src = f.read()
+    for entry in ("gnx_wide_closest_hit", "gnx_wide_any_hit",
+                  "gnx_wide_stack_cap"):
+        assert f'extern "C" int {entry}(' in src
+    assert '#include "watertight.cuh"' in src and "cudaGetLastError" in src
+    assert "template <bool kAnyHit>" in src
+    with open(os.path.join(build.CSRC_DIR, "closest_hit.cu")) as f:
+        assert '#include "watertight.cuh"' in f.read()
+
+
 # -- the device is explicit ---------------------------------------------------
 
 def _no_cuda():
@@ -102,6 +165,10 @@ def _no_cuda():
 ENTRY_POINTS = {
     "resolve_device": lambda **kw: resolve_device(**kw),
     "cornell_box": lambda **kw: T_presets.cornell_box(16, 16, **kw),
+    "envmap_mesh": lambda **kw: T_presets.envmap_mesh(
+        8, 8, mesh=T_load.make_blob_mesh(8)[:2], **kw),
+    "build_bvh": lambda **kw: T_bvh.build_bvh(
+        *T_load.make_blob_mesh(8)[:2], builder="numpy", **kw),
     "sphere_point_light": lambda **kw: T_presets.sphere_point_light(8, 8, **kw),
     "SceneBuilder.build": lambda **kw: T_scene.SceneBuilder().build(**kw),
     "make_perspective_camera": lambda **kw: T_cam.make_perspective_camera(
@@ -153,9 +220,9 @@ def test_cli_resume_from_checkpoint(tmp_path):
 @pytest.mark.parametrize("argv,names", [
     (["--sampler", "sobol"], "--sampler sobol --fast-mis"),       # faithful
     (["--fast-mis"], "--sampler sobol --fast-mis"),               # halton
-    (["--sampler", "sobol", "--fast-mis", "--preset", "envmap"], "envmap"),
-    (["--sampler", "sobol", "--fast-mis", "--preset", "cornell-mesh"],
-     "cornell-mesh"),
+    (["--sampler", "sobol", "--fast-mis", "--preset", "volume"], "volume"),
+    (["--sampler", "sobol", "--fast-mis", "--preset", "cornell-glass"],
+     "cornell-glass"),
     (["--sampler", "sobol", "--fast-mis", "--integrator", "whitted"],
      "whitted"),
     (["--sampler", "sobol", "--fast-mis", "--view"], "--view"),
@@ -164,6 +231,21 @@ def test_cli_names_what_is_not_ported(argv, names):
     with pytest.raises(SystemExit) as e:
         cli.main(["render", "--cpu", "--width", "8", "--height", "8"] + argv)
     assert "not ported" in str(e.value) and names in str(e.value)
+
+
+@pytest.mark.parametrize("preset", ["envmap", "cornell-mesh"])
+def test_cli_renders_the_mesh_presets(preset, tmp_path, capsys):
+    """The two presets with a BVH, through the CLI on the CPU (the full
+    meshes, a tiny image); without the HDR asset envmap takes its skybox."""
+    npy = tmp_path / "x.npy"
+    cli.main(["render", "--preset", preset, "--sampler", "sobol", "--fast-mis",
+              "--width", "12", "--height", "12", "--spp", "1", "--spp-chunk",
+              "1", "--max-depth", "3", "--cpu", "--out-npy", str(npy)])
+    img = np.load(npy)
+    assert img.shape == (12, 12, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.01
+    assert preset in cli.PORTED_PRESETS
+    assert '"device": "cpu"' in capsys.readouterr().out
 
 
 def _render_flags(cli_module, monkeypatch):
@@ -211,19 +293,12 @@ def _cornell():
 def _builder_calls():
     b = T_scene.SceneBuilder
     return {
-        "build(bvh=True)": lambda: b().build(bvh=True, device="cpu"),
-        "add_texture": lambda: b().add_texture(np.zeros((2, 2, 3))),
-        "add_matte(kd_tex)": lambda: b().add_matte((1, 1, 1), kd_tex=0),
-        "set_environment": lambda: b().set_environment(np.zeros((2, 4, 3))),
+        "build(bvh='lbvh')": lambda: b().build(bvh="lbvh", device="cpu"),
         "add_homogeneous_medium": lambda: b().add_homogeneous_medium(1, 1),
         "add_grid_medium": lambda: b().add_grid_medium(np.zeros((2, 2, 2)), 1, 1),
         "add_instances": lambda: b().add_instances(),
-        "cornell_box(bvh=True)": lambda: T_presets.cornell_box(
-            8, 8, bvh=True, device="cpu"),
         "make_halton_sampler": lambda: T_smp.make_halton_sampler(
             4, 8, 8, device="cpu"),
-        "generate_ray_differentials": lambda: T_cam.generate_ray_differentials(
-            None, None, None, None),
     }
 
 
@@ -233,55 +308,111 @@ def test_unported_builder_call_raises(name):
         _builder_calls()[name]()
 
 
-def _render(**kw):
-    scene, cam = _cornell()
+def _ported_builder_calls():
+    """What the mesh path brought: each refused before and works now."""
+    b = T_scene.SceneBuilder
+
+    def textured():
+        sb = b()
+        tex = sb.add_texture(np.full((4, 4, 3), 0.5, np.float32))
+        sb.add_sphere((0, 0, 0), 1.0, sb.add_matte((1, 1, 1), kd_tex=tex))
+        return sb.build(device="cpu").textures
+
+    def environment():
+        sb = b()
+        sb.set_environment(np.ones((4, 8, 3), np.float32))
+        return sb.build(device="cpu").env
+
+    def rd():
+        cam = T_cam.make_perspective_camera(8, 8, (0, 0, 5), (0, 0, 0),
+                                            device="cpu")
+        z = torch.zeros((3,))
+        return T_cam.generate_ray_differentials(
+            cam, torch.ones((3, 2)), z, torch.zeros((3, 2)))[3]
+
+    return {
+        "build(bvh=True)": lambda: T_presets.cornell_box(
+            8, 8, device="cpu")[0] and b().build(bvh=True, device="cpu").bvh,
+        "add_texture+add_matte(kd_tex)": textured,
+        "set_environment": environment,
+        "add_disney": lambda: b().add_disney((0.5, 0.5, 0.5), metallic=0.3) == 0,
+        "cornell_box(bvh=True)": lambda: T_presets.cornell_box(
+            8, 8, bvh=True, device="cpu")[0].bvh,
+        "generate_ray_differentials": rd,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_ported_builder_calls()))
+def test_ported_builder_call_works(name):
+    assert _ported_builder_calls()[name]() is not None
+
+
+def _render(scene=None, cam=None, **kw):
+    if scene is None:
+        scene, cam = _cornell()
+    replace = {k: kw.pop(k) for k in ("n_inst", "has_bump") if k in kw}
     cfg = T_path.make_config(scene, 16, 16, spp=1, spp_chunk=1, **kw)
     return T_path.render_chunk(scene, cam,
                                T_smp.make_sobol_sampler(1, device="cpu"),
-                               cfg, 0, 1)
+                               cfg._replace(**replace), 0, 1)
 
 
 @pytest.mark.parametrize("kw", [
     dict(fast_mis=False),
-    dict(fast_mis=True, pipeline_casts=True),
-    dict(fast_mis=True, use_bvh=True),
     dict(fast_mis=True, light_strategy="spatial"),
-    dict(fast_mis=True, has_textures=True),
+    dict(fast_mis=True, use_bvh=True, bvh_mode="stack"),
+    dict(fast_mis=True, use_bvh=True, bvh_stackless=False),
+    dict(fast_mis=True, n_inst=1),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_render_branch_raises(kw):
-    if "has_textures" in kw:
-        scene, cam = _cornell()
-        cfg = T_path.make_config(scene, 16, 16, spp=1, fast_mis=True)
-        cfg = cfg._replace(has_textures=True)
-        with pytest.raises(NotImplementedError):
-            T_path.render_chunk(scene, cam,
-                                T_smp.make_sobol_sampler(1, device="cpu"),
-                                cfg, 0, 1)
-        return
+    scene = cam = None
+    if kw.get("use_bvh"):
+        scene, cam = T_presets.cornell_box(16, 16, bvh=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        _render(**kw)
+        _render(scene, cam, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fast_mis=True, pipeline_casts=True, compact_tail=True,
+         compact_stages=((0, 1),)),
+    dict(fast_mis=True, use_bvh=True),
+    dict(fast_mis=True, use_bvh=True, bvh_mode="pallas"),
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_ported_render_branch_runs(kw):
+    """Branches that were refused before the mesh path and render now; all
+    give the brute-force image's mean."""
+    scene, cam = T_presets.cornell_box(16, 16, bvh=True, device="cpu")
+    want = _render(scene, cam, fast_mis=True, use_bvh=False)
+    got = _render(scene, cam, **kw)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy().mean(), want.numpy().mean(),
+                               rtol=1e-4)
 
 
 def test_unported_material_and_light_kinds_raise():
+    """Bump maps are still refused; Disney, rough glass and the environment
+    light (refused before the mesh path) are dispatched now."""
     b = T_scene.SceneBuilder()
-    m = b.add_material(T_scene.MAT_DISNEY)
-    b.add_sphere((0, 0, 0), 1.0, m)
+    tex = b.add_texture(np.zeros((2, 2, 3), np.float32))
+    b.add_sphere((0, 0, 0), 1.0,
+                 b.add_material(T_scene.MAT_MATTE, bump_tex=tex))
     with pytest.raises(NotImplementedError):
         T_path.make_config(b.build(device="cpu"), 8, 8, spp=1)
     b = T_scene.SceneBuilder()
-    b.add_sphere((0, 0, 0), 1.0, b.add_glass(rough_u=0.2, rough_v=0.2))
-    with pytest.raises(NotImplementedError):
-        T_path.make_config(b.build(device="cpu"), 8, 8, spp=1)
-    # an environment light (kind 4) in the light table
-    scene, _ = _cornell()
-    cfg = T_path.make_config(scene, 8, 8, spp=1)._replace(light_kinds=(3, 4, 5))
+    b.add_sphere((0, 0, 0), 1.0, b.add_disney((0.5, 0.5, 0.5)))
+    b.add_sphere((3, 0, 0), 1.0, b.add_glass(rough_u=0.2, rough_v=0.2))
+    b.set_environment(np.ones((4, 8, 3), np.float32))
+    scene = b.build(device="cpu")
+    cfg = T_path.make_config(scene, 8, 8, spp=1)
+    assert cfg.mat_kinds == (T_scene.MAT_GLASS, T_scene.MAT_DISNEY)
+    assert cfg.has_env
     z = torch.zeros((4, 3))
+    up = torch.tensor([[0.6, 0.0, 0.8]] * 4)  # off the map's poles
     idx = torch.zeros((4,), dtype=torch.int32)
-    for call in (lambda: T_lights.sample_li(scene, cfg, idx, z, z[:, :2]),
-                 lambda: T_lights.pdf_li(scene, cfg, idx, z, z),
-                 lambda: T_lights.escaped_radiance(scene, cfg, z, z)):
-        with pytest.raises(NotImplementedError):
-            call()
+    ls = T_lights.sample_li(scene, cfg, idx, z, torch.full((4, 2), 0.3))
+    assert bool(ls.is_infinite.all()) and bool((ls.pdf > 0).all())
+    assert bool((T_lights.pdf_li(scene, cfg, idx, z, up) > 0).all())
+    assert bool((T_lights.escaped_radiance(scene, cfg, z, up) == 1).all())
 
 
 def test_unported_trace_branches_raise():
@@ -290,11 +421,14 @@ def test_unported_trace_branches_raise():
     o = torch.zeros((4, 3))
     d = torch.ones((4, 3))
     t = torch.ones((4,))
-    for bad in (cfg._replace(use_bvh=True), cfg._replace(n_inst=1)):
-        with pytest.raises(NotImplementedError):
-            T_trace.scene_intersect(scene, bad, o, d, t)
-        with pytest.raises(NotImplementedError):
-            T_trace.scene_occluded(scene, bad, o, d, t)
+    with pytest.raises(NotImplementedError):
+        T_trace.scene_intersect(scene, cfg._replace(n_inst=1), o, d, t)
+    with pytest.raises(NotImplementedError):
+        T_trace.scene_occluded(scene, cfg._replace(n_inst=1), o, d, t)
+    # use_bvh on a scene that was built without a tree is the caller's error
+    for cast in (T_trace.scene_intersect, T_trace.scene_occluded):
+        with pytest.raises(ValueError, match="bvh=True"):
+            cast(scene, cfg._replace(use_bvh=True), o, d, t)
     with pytest.raises(NotImplementedError):
         T_path.trace_paths(scene, cfg, None, None, None, o, d)
     with pytest.raises(NotImplementedError):
