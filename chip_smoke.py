@@ -17,7 +17,9 @@ the CPU or to a plain version:
               card, at the shapes its main path gives it, plus ragged counts,
               dead lanes, t_max cut short and the shared-edge ray set; its
               time, the plain version's time and the card's bound for the
-              same work
+              same work (3a brute force, 3b the width-8 BVH walks, 3c the
+              binary threaded BVH walks on the same rays, with a tree without
+              octant links and the two-phase cast)
   4. cornell  path.render of the Cornell box at 500x500, depth 8, Sobol',
               spp_chunk=4 (1M lanes a chunk), fast_mis + compact_tail +
               use_pallas, 8 spp, and the CLI's render command
@@ -30,6 +32,21 @@ the CPU or to a plain version:
               the same render with the plain walk
   6. golden   64x64, 64 spp Cornell on the card against the reference
               renderer's image tests/golden/ref_path_cornell.npz
+  7. binary   one chunk of the mesh path of phase 5 with GNX_WIDE_BVH=0: every
+              BVH cast through the binary threaded-BVH kernels, none through
+              the wide ones; the image against phase 5's
+  8. whitted  the Whitted, direct-lighting and faithful path integrators with
+              the Halton sampler at 500x500: whitted.render of the Cornell box
+              (depth 5, 2M lanes a chunk), the CLI's ``--preset cornell-mesh
+              --integrator whitted`` with its default flags through either
+              walk, the same scene with a mirror mesh (reflected rays inside
+              the 20,480-triangle tree) through whitted.render and
+              path.render(fast_mis=False), binary and wide, with the isolated
+              casts of its depth-1 rays, its depth-0 shadow rays and an
+              incoherent ray set through both pairs of kernels, each against
+              its plain walk, and direct.render with both strategies
+  9. goldens  32 spp Halton through whitted, direct and the faithful path
+              against the reference renderer's three Cornell goldens
 
 Launch counts are set to 0 just before each main path is driven and read
 just after.  Every phase prints one JSON object on a line of its own.  The
@@ -39,6 +56,7 @@ line before the last is the {"kernels": [...]} record, the last line is
 
 import contextlib
 import functools
+import io
 import json
 import os
 import subprocess
@@ -60,6 +78,15 @@ OPS_PER_PAIR = 150
 # dequantizations (convert, multiply, add), 6 subtract-multiplies, 10 min/max,
 # the widening and 4 compares
 OPS_PER_SLAB = 45
+# f32 operations of one binary node visit (csrc/packet_bvh.cu): 6
+# subtract-multiplies, 10 min/max, the widening and 4 compares
+OPS_PER_NODE = 25
+# bytes a binary walk loads per visited node (32-byte box row + 8-byte link
+# pair) and per tested leaf row (144 bytes of vertices + 16 of ids).  These
+# loads are served by the L2 cache and are no part of a kernel's bound: they
+# are reported beside it as `table_load_bytes`
+BYTES_PER_NODE = 40
+BYTES_PER_LEAF_ROW = 160
 
 WIDTH = HEIGHT = 500
 MAX_DEPTH = 8
@@ -67,6 +94,7 @@ SPP_CHUNK = 4
 SPP = 8
 MESH_STAGES = ((0, 2), (1, 16), (2, 32), (4, 64))
 PLAIN_SUBSAMPLE = 100_000  # rays the plain walk takes of a 1M-ray set
+SORT_ROUNDS = 1  # rounds of (on, off, off, on) chunks in phase 5
 
 T_RTOL = 1e-5   # t: kernel vs plain version
 B_ATOL = 1e-5   # barycentrics: kernel vs plain version
@@ -187,7 +215,8 @@ def shared_edge(dev, n=500):
     return put(soa), put(o), put(d), put(np.full(n, 1e30, np.float32))
 
 
-def compare_hits(name, got, ref, t_max, miss_b=(0.0, 0.0, 0.0)):
+def compare_hits(name, got, ref, t_max, miss_b=(0.0, 0.0, 0.0),
+                 need_hits=True):
     """Kernel against plain version: hit and tri identical, t within T_RTOL,
     b within B_ATOL, dead lanes inert, a miss carries t = INFINITY, tri = 0
     and b = miss_b.  Returns max |error|."""
@@ -196,7 +225,11 @@ def compare_hits(name, got, ref, t_max, miss_b=(0.0, 0.0, 0.0)):
     check(torch.equal(got.tri, ref.tri),
           f"{name}: tri differs on {int((got.tri != ref.tri).sum())} lanes")
     h = ref.hit
-    check(int(h.sum()) > 0, f"{name}: no ray hits anything")
+    if int(h.sum()) == 0:
+        check(not need_hits, f"{name}: no ray hits anything")
+        check(torch.equal(got.t, ref.t) and torch.equal(got.b, ref.b),
+              f"{name}: the miss records differ")
+        return 0.0
     t_err = (got.t[h] - ref.t[h]).abs()
     check(bool((t_err <= T_RTOL * ref.t[h].abs()).all()),
           f"{name}: t differs by up to {float(t_err.max())}")
@@ -373,14 +406,16 @@ def mesh_rays(dev, scene, cam, cfg):
                 shadow=(so.contiguous(), sd.contiguous(), st.contiguous()))
 
 
-def compare_wide_hits(name, got, ref, t_max):
-    """compare_hits with the wide wrappers' miss record, b = (1, 0, 0)."""
-    return compare_hits(name, got, ref, t_max, miss_b=(1.0, 0.0, 0.0))
+def compare_wide_hits(name, got, ref, t_max, need_hits=True):
+    """compare_hits with the BVH wrappers' miss record, b = (1, 0, 0)."""
+    return compare_hits(name, got, ref, t_max, miss_b=(1.0, 0.0, 0.0),
+                        need_hits=need_hits)
 
 
-def phase_wide_kernels(dev, scene, cam, cfg):
+def phase_wide_kernels(dev, scene, cfg, rays):
     """Kernels 2 and 3 on the full-width tree: each against its plain walk,
-    then timed.  Returns (module, closest record, any-hit record)."""
+    then timed.  Returns (module, closest record, any-hit record, the times
+    and the visit counts per ray set)."""
     from gnxraytracer_tpu_torch.kernels import wide_bvh as wb
     from gnxraytracer_tpu_torch.ops import bvh as bvh_mod
 
@@ -388,9 +423,10 @@ def phase_wide_kernels(dev, scene, cam, cfg):
     n_tri = int((pack.tid >= 0).sum())
     check(n_tri == 104_882 and cfg.n_big == 2 and cfg.n_tris == 104_884,
           f"unexpected tree: {n_tri} triangles in it, {cfg.n_big} outside")
-    rays = mesh_rays(dev, scene, cam, cfg)
     n = rays["camera"][0].shape[0]
     check(n == WIDTH * HEIGHT * SPP_CHUNK, "unexpected ray count")
+    table_bytes = sum(x.numel() * x.element_size() for x in pack
+                      if isinstance(x, torch.Tensor))
     sub = torch.arange(0, n, n // PLAIN_SUBSAMPLE, device=dev)[:PLAIN_SUBSAMPLE]
 
     cases, visits, plain_ms = [], {}, {}
@@ -510,8 +546,9 @@ def phase_wide_kernels(dev, scene, cam, cfg):
 
     def record(name, entry, out_bytes, case):
         v = visits[case]
+        # bytes: every ray in, every result out, the tree's tables once
         bound_ms, bound_by, bytes_ms, ops_ms = bound(
-            n * (28 + out_bytes),
+            n * (28 + out_bytes) + table_bytes,
             v["node_visits"] * 8 * OPS_PER_SLAB
             + v["leaf_visits"] * 4 * OPS_PER_PAIR)
         errs = [c["max_abs_err"] for c in cases if c["kernel"] == name]
@@ -524,13 +561,212 @@ def phase_wide_kernels(dev, scene, cam, cfg):
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             shape={"n_rays": n, "rays": case, "entry": entry,
                    "plain_n_rays": len(sub)},
-            bytes_ms=bytes_ms, ops_ms=ops_ms,
+            bytes_ms=bytes_ms, ops_ms=ops_ms, table_bytes=table_bytes,
             ms_unsorted=times[case]["unsorted_ms"],
             ms_wrapper_with_sort=times[case]["wrapper_ms"],
             node_visits=v["node_visits"], leaf_visits=v["leaf_visits"])
 
     return (wb, record("wide_closest_hit", "gnx_wide_closest_hit", 21, "bounce"),
-            record("wide_any_hit", "gnx_wide_any_hit", 1, "shadow"))
+            record("wide_any_hit", "gnx_wide_any_hit", 1, "shadow"), times,
+            visits)
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the binary threaded-BVH kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def sorted_rays(o, d, t, lo, hi, key):
+    """The rays in the coherence order their wrapper would launch them in."""
+    from gnxraytracer_tpu_torch.ops import bvh as bvh_mod
+
+    perm, _ = bvh_mod.ray_sort_perm(o, d, lo, hi, t_max=t, key_mode=key)
+    return o[perm].contiguous(), d[perm].contiguous(), t[perm].contiguous()
+
+
+def phase_packet_kernels(dev, scene, cfg, rays, wide_times, wide_visits):
+    """Kernels 4 and 5 on the full-width tree, on the rays of phase 3b: each
+    against its plain walk, then timed, with the wide kernels' times on the
+    same rays beside them.  Returns (module, closest record, any-hit
+    record)."""
+    from gnxraytracer_tpu_torch.kernels import packet_bvh as pk
+    from gnxraytracer_tpu_torch.ops import bvh as bvh_mod
+
+    pack = scene.bvh.packet
+    n_tri = int((pack.tid >= 0).sum())
+    check(n_tri == 104_882 and pack.meta.shape[0] == 8,
+          f"unexpected tree: {n_tri} triangles, {pack.meta.shape[0]} link tables")
+    n = rays["camera"][0].shape[0]
+    sub = torch.arange(0, n, n // PLAIN_SUBSAMPLE, device=dev)[:PLAIN_SUBSAMPLE]
+    table_bytes = sum(x.numel() * x.element_size() for x in pack)
+
+    cases, visits, plain_ms = [], {}, {}
+    c0, a0 = pk.closest_launch_count, pk.any_launch_count
+    for name, (o, d, t) in rays.items():
+        so, sd, st = o[sub].contiguous(), d[sub].contiguous(), t[sub].contiguous()
+        stats = {}
+        if name != "shadow":
+            got = pk.packet_closest_hit(pack, o, d, t, sort=False)
+            got_s = pk.packet_closest_hit(pack, o, d, t, sort=True,
+                                          sort_key=cfg.sort_key)
+            torch.cuda.synchronize()
+            for f in got._fields:
+                check(torch.equal(getattr(got, f), getattr(got_s, f)),
+                      f"binary {name}: {f} depends on the coherence sort")
+            t0 = time.time()
+            ref = pk.packet_closest_hit_reference(pack, so, sd, st, stats=stats)
+            torch.cuda.synchronize()
+            plain_ms[name] = (time.time() - t0) * 1e3
+            got_sub = type(got)(*(x[sub] for x in got))
+            err = compare_wide_hits("binary " + name, got_sub, ref, st)
+            cases.append(dict(kernel="packet_closest_hit", case=name, n_rays=n,
+                              plain_on=f"a sub-sample of {len(sub)} rays",
+                              max_abs_err=err,
+                              hit_fraction=float(got.hit.float().mean())))
+        else:
+            got = pk.packet_any_hit(pack, o, d, t, sort=False)
+            got_s = pk.packet_any_hit(pack, o, d, t, sort=True,
+                                      sort_key=cfg.sort_key)
+            torch.cuda.synchronize()
+            check(torch.equal(got, got_s), "binary shadow: occ depends on the sort")
+            t0 = time.time()
+            ref = pk.packet_any_hit_reference(pack, so, sd, st, stats=stats)
+            torch.cuda.synchronize()
+            plain_ms[name] = (time.time() - t0) * 1e3
+            check(torch.equal(got[sub], ref), "binary shadow: occ differs on "
+                  f"{int((got[sub] != ref).sum())} lanes")
+            check(not bool(got[t <= 0].any()),
+                  "binary shadow: a dead lane is occluded")
+            check(int(ref.sum()) > 0, "binary shadow: no ray is occluded")
+            cases.append(dict(kernel="packet_any_hit", case=name, n_rays=n,
+                              plain_on=f"a sub-sample of {len(sub)} rays",
+                              max_abs_err=0.0,
+                              occluded_fraction=float(got.float().mean())))
+        visits[name] = {k: v * (n / len(sub)) for k, v in stats.items()}
+
+    # a ragged count, dead lanes and t_max cut short, all rays through both
+    o, d, t = (x[::9][:100_003].clone() for x in rays["bounce"])
+    t[1::4] = 1.5
+    t[2::8] = 0.0
+    got = pk.packet_closest_hit(pack, o, d, t)
+    ref = pk.packet_closest_hit_reference(pack, o, d, t)
+    cases.append(dict(kernel="packet_closest_hit", case="ragged+dead+t_max",
+                      n_rays=100_003, plain_on="all rays",
+                      max_abs_err=compare_wide_hits("binary ragged", got, ref, t)))
+    check(bool((got.t[got.hit] <= t[got.hit]).all()),
+          "binary ragged: t beyond t_max")
+    occ = pk.packet_any_hit(pack, o, d, t)
+    check(torch.equal(occ, pk.packet_any_hit_reference(pack, o, d, t)),
+          "binary ragged: occ differs")
+    check(torch.equal(occ, got.hit),
+          "binary ragged: any hit and closest hit disagree on which rays hit")
+    cases.append(dict(kernel="packet_any_hit", case="ragged+dead+t_max",
+                      n_rays=100_003, plain_on="all rays", max_abs_err=0.0))
+
+    # the two-phase cast: capped at near_r first, the misses again in full
+    two = pk.packet_closest_hit(pack, o, d, t, near_r=0.25)
+    for f in got._fields:
+        check(torch.equal(getattr(two, f), getattr(got, f)),
+              f"binary two-phase cast: {f} differs from the one-phase cast")
+    cases.append(dict(kernel="packet_closest_hit", case="two-phase near_r=0.25",
+                      n_rays=100_003, plain_on="the one-phase kernel cast",
+                      max_abs_err=0.0))
+
+    # a tree without octant links (one link table, the depth-first order),
+    # made from the same binary tables
+    b = scene.bvh
+    host = lambda x: x.cpu().numpy()
+    k1 = bvh_mod.build_packet_pack(
+        host(b.bounds_lo), host(b.bounds_hi), host(b.offset), host(b.n_prims),
+        host(b.prim_idx), host(b.leaf_soa), host(b.miss), device=dev)
+    check(k1.meta.shape[0] == 1, "the K = 1 pack has octant links")
+    got1 = pk.packet_closest_hit(k1, o, d, t)
+    ref1 = pk.packet_closest_hit_reference(k1, o, d, t)
+    cases.append(dict(kernel="packet_closest_hit", case="K=1 fixed order",
+                      n_rays=100_003, plain_on="all rays",
+                      max_abs_err=compare_wide_hits("binary K=1", got1, ref1, t)))
+    check(torch.equal(got1.hit, got.hit), "K = 1: another hit set than K = 8")
+    check(torch.equal(pk.packet_any_hit(k1, o, d, t), got.hit),
+          "K = 1: any hit differs")
+    cases.append(dict(kernel="packet_any_hit", case="K=1 fixed order",
+                      n_rays=100_003, plain_on="the closest-hit kernel's hit set",
+                      max_abs_err=0.0))
+
+    # the shared diagonal of a two-triangle quad, through its own tree
+    e_soa, e_o, e_d, e_t = shared_edge(dev)
+    quad_v = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]], np.float32)
+    quad_t = np.asarray([[0, 1, 2], [1, 3, 2]], np.int32)
+    quad = bvh_mod.build_bvh(quad_v, quad_t, device=dev).packet
+    e_got = pk.packet_closest_hit(quad, e_o, e_d, e_t)
+    check(bool(e_got.hit.all()),
+          f"binary: {int((~e_got.hit).sum())} rays leaked through the shared edge")
+    check(bool(pk.packet_any_hit(quad, e_o, e_d, e_t).all()),
+          "binary any hit: rays leaked through the shared edge")
+    cases.append(dict(kernel="packet_closest_hit", case="shared-edge",
+                      n_rays=500, plain_on="all rays",
+                      max_abs_err=compare_wide_hits(
+                          "binary shared-edge", e_got,
+                          pk.packet_closest_hit_reference(quad, e_o, e_d, e_t),
+                          e_t)))
+    check(pk.closest_launch_count > c0 and pk.any_launch_count > a0,
+          "a wrapper did not count its launches")
+    emit({"phase": "packet_kernel_vs_plain", "tolerance": {
+        "hit": "identical", "occ": "identical", "tri": "identical",
+        "t_rtol": T_RTOL, "b_atol": B_ATOL}, "tree": {
+        "triangles": n_tri, "binary_nodes": int(pack.nodes.shape[0]),
+        "link_tables": int(pack.meta.shape[0]),
+        "leaf_rows": int(pack.leafs.shape[0]), "table_bytes": table_bytes},
+        "cases": cases})
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    lo, hi = pack.nodes[0, 0:3], pack.nodes[0, 3:6]
+    times = {}
+    for name, (o, d, t) in rays.items():
+        fn = pk.packet_any_hit if name == "shadow" else pk.packet_closest_hit
+        os_, ds_, ts_ = sorted_rays(o, d, t, lo, hi, cfg.sort_key)
+        times[name] = dict(
+            unsorted_ms=time_cuda(lambda: fn(pack, o, d, t, sort=False), 10, flush),
+            sorted_ms=time_cuda(lambda: fn(pack, os_, ds_, ts_, sort=False), 10, flush),
+            wrapper_ms=time_cuda(
+                lambda: fn(pack, o, d, t, sort=True, sort_key=cfg.sort_key),
+                10, flush),
+            wide_kernel_sorted_ms=wide_times[name]["sorted_ms"],
+            wide_kernel_unsorted_ms=wide_times[name]["unsorted_ms"],
+            alive_fraction=float((t > 0).float().mean()))
+    emit({"phase": "packet_kernel_times", "n_rays": n, "times": times,
+          "plain_ms_on_subsample": plain_ms, "subsample": len(sub),
+          "visits_scaled_to_n_rays": visits,
+          "wide_visits_scaled_to_n_rays": wide_visits})
+
+    def record(name, entry, body_line, out_bytes, case):
+        v = visits[case]
+        # bytes as for the wide kernels: every ray in, every result out, the
+        # tree's tables once; what the walk loads per visit comes from the L2
+        # cache and is reported beside the bound, not in it
+        bound_ms, bound_by, bytes_ms, ops_ms = bound(
+            n * (28 + out_bytes) + table_bytes,
+            v["node_visits"] * OPS_PER_NODE
+            + v["leaf_visits"] * 4 * OPS_PER_PAIR)
+        errs = [c["max_abs_err"] for c in cases if c["kernel"] == name]
+        return dict(
+            name=name, route="cuda",
+            source="gnxraytracer_tpu_torch/csrc/packet_bvh.cu",
+            replaces=f"gnxraytracer_tpu/ops/pallas_bvh.py:{body_line}",
+            launches=None, max_abs_err=max(errs),
+            ms=times[case]["sorted_ms"], plain_ms=plain_ms[case],
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            shape={"n_rays": n, "rays": case, "entry": entry,
+                   "plain_n_rays": len(sub)},
+            bytes_ms=bytes_ms, ops_ms=ops_ms, table_bytes=table_bytes,
+            table_load_bytes=v["node_visits"] * BYTES_PER_NODE
+            + v["leaf_visits"] * BYTES_PER_LEAF_ROW,
+            ms_unsorted=times[case]["unsorted_ms"],
+            ms_wrapper_with_sort=times[case]["wrapper_ms"],
+            ms_wide_kernel_same_rays=times[case]["wide_kernel_sorted_ms"],
+            node_visits=v["node_visits"], leaf_visits=v["leaf_visits"])
+
+    return (pk, record("packet_closest_hit", "gnx_packet_closest_hit", 195, 21,
+                       "bounce"),
+            record("packet_any_hit", "gnx_packet_any_hit", 544, 1, "shadow"))
 
 
 # ---------------------------------------------------------------------------
@@ -553,12 +789,36 @@ def main_path_setup(dev):
     return scene, cam, cfg, samplers.make_sobol_sampler(SPP, device=dev)
 
 
-def reset_counts(ch, wb):
+def reset_counts(ch, wb, pk):
     ch.reset_launch_count()
     wb.reset_launch_counts()
+    pk.reset_launch_counts()
 
 
-def phase_main_path(dev, ch, wb):
+def packet_counts(pk):
+    return (pk.closest_launch_count, pk.any_launch_count)
+
+
+def wide_counts(wb):
+    return (wb.closest_launch_count, wb.any_launch_count)
+
+
+@contextlib.contextmanager
+def binary_walk():
+    """GNX_WIDE_BVH=0 while the block runs: the BVH casts walk the binary
+    threaded table (kernels/packet_bvh.py); restored after."""
+    old = os.environ.get("GNX_WIDE_BVH")
+    os.environ["GNX_WIDE_BVH"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GNX_WIDE_BVH"]
+        else:
+            os.environ["GNX_WIDE_BVH"] = old
+
+
+def phase_main_path(dev, ch, wb, pk):
     """The Cornell main path.  Returns the closest_hit kernel's launches."""
     from gnxraytracer_tpu_torch import cli
     from gnxraytracer_tpu_torch.models.integrators import path
@@ -571,7 +831,7 @@ def phase_main_path(dev, ch, wb):
     torch.cuda.synchronize()
     rays_per_path = float(n_rays) / lanes
 
-    reset_counts(ch, wb)
+    reset_counts(ch, wb, pk)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     img = path.render(scene, cam, smp, cfg)
@@ -582,8 +842,8 @@ def phase_main_path(dev, ch, wb):
     casts = chunks * (MAX_DEPTH + 1)  # one closest-hit cast per bounce
     check(launches == casts,
           f"kernel launches {launches} != closest-hit casts {casts}")
-    check(wb.closest_launch_count == 0 and wb.any_launch_count == 0,
-          "the Cornell path launched a wide-BVH kernel")
+    check(wide_counts(wb) == (0, 0) and packet_counts(pk) == (0, 0),
+          "the Cornell path launched a BVH kernel")
     check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {img.shape}")
     check(bool(torch.isfinite(img).all()), "the image is not finite")
     mean = float(img.mean())
@@ -634,9 +894,10 @@ def timed_chunk(path, scene, cam, smp, cfg, start):
     return (time.time() - t0) * 1e3, img
 
 
-def phase_mesh_path(dev, ch, wb, setup, tmp):
+def phase_mesh_path(dev, ch, wb, pk, setup, tmp):
     """The mesh main path.  Returns the launches of (wide_closest_hit,
-    wide_any_hit) in path.render."""
+    wide_any_hit) in path.render, and the radiance sum of the chunk of
+    samples 4-7 for phase 7 to compare with."""
     from gnxraytracer_tpu_torch import cli
     from gnxraytracer_tpu_torch.models.integrators import path
 
@@ -652,13 +913,13 @@ def phase_mesh_path(dev, ch, wb, setup, tmp):
     rays_per_path = float(n_rays) / lanes
     check(1.0 < rays_per_path < 6.0, f"rays per path {rays_per_path}")
 
-    reset_counts(ch, wb)
+    reset_counts(ch, wb, pk)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     img = path.render(scene, cam, smp, cfg)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = (wb.closest_launch_count, wb.any_launch_count)
+    launches = wide_counts(wb)
     chunks = SPP // SPP_CHUNK
     # one closest-hit cast at the camera and one after every work, one shadow
     # cast per work, in every chunk
@@ -667,6 +928,8 @@ def phase_mesh_path(dev, ch, wb, setup, tmp):
     want = (chunks * per_chunk[0], chunks * per_chunk[1])
     check(launches == want, f"wide kernel launches {launches} != casts {want}")
     check(ch.launch_count == 0, "the mesh path launched the brute-force kernel")
+    check(packet_counts(pk) == (0, 0),
+          "the mesh path launched a binary-BVH kernel without being asked to")
     check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {img.shape}")
     check(bool(torch.isfinite(img).all()), "the mesh image is not finite")
     mean = float(img.mean())
@@ -674,10 +937,10 @@ def phase_mesh_path(dev, ch, wb, setup, tmp):
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
 
     # the same chunk with the coherence sort on and off, in turns (on, off,
-    # off, on), three rounds: the chunk is bound by the host, whose times
-    # spread, so the medians are what to compare
+    # off, on), SORT_ROUNDS rounds: the chunk is bound by the host, whose
+    # times spread, so the medians are what to compare
     sort_on, sort_off = [], []
-    for _ in range(3):
+    for _ in range(SORT_ROUNDS):
         ms, img_on = timed_chunk(path, scene, cam, smp, cfg, 4)
         sort_on.append(ms)
         with casts_unsorted(wb):
@@ -704,14 +967,14 @@ def phase_mesh_path(dev, ch, wb, setup, tmp):
 
     # the CLI a user would call; it takes no HDR path, so without the
     # reference renderer's assets the preset falls back to its skybox
-    reset_counts(ch, wb)
+    reset_counts(ch, wb, pk)
     with tempfile.TemporaryDirectory() as out_dir:
         out = os.path.join(out_dir, "cli.npy")
         cli.main(["render", "--preset", "envmap", "--sampler", "sobol",
                   "--fast-mis", "--spp", "4", "--max-depth", str(MAX_DEPTH),
                   "--out-npy", out])
         cli_img = np.load(out)
-    cli_launches = (wb.closest_launch_count, wb.any_launch_count)
+    cli_launches = wide_counts(wb)
     # the CLI's configuration runs the classic loop: one closest-hit and one
     # shadow cast per bounce
     check(cli_launches == (MAX_DEPTH + 1, MAX_DEPTH + 1),
@@ -740,7 +1003,363 @@ def phase_mesh_path(dev, ch, wb, setup, tmp):
           "image_mean": float(img_k.mean())})
     check(bool(close.all()), "cross-check: the kernels' image differs from "
           "the plain walk's")
+    return launches, img_on
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the mesh main path through the binary threaded-BVH kernels
+# ---------------------------------------------------------------------------
+
+def phase_mesh_path_binary(dev, ch, wb, pk, setup, wide_chunk):
+    """One chunk of the mesh main path (samples 4-7, after a warm-up chunk)
+    with every BVH cast through kernels 4 and 5.  Returns their launches."""
+    from gnxraytracer_tpu_torch.models.integrators import path
+
+    scene, cam, cfg, smp, _ = setup
+    lanes = WIDTH * HEIGHT * SPP_CHUNK
+    with binary_walk():
+        _, n_rays = path.render_chunk(scene, cam, smp, cfg, 0, SPP_CHUNK)
+        torch.cuda.synchronize()
+        reset_counts(ch, wb, pk)
+        ms, img = timed_chunk(path, scene, cam, smp, cfg, 4)
+        launches = packet_counts(pk)
+    per_chunk = path.pipelined_cast_counts(cfg, lanes)
+    check(launches == per_chunk,
+          f"binary kernel launches {launches} != casts {per_chunk}")
+    check(wide_counts(wb) == (0, 0) and ch.launch_count == 0,
+          "GNX_WIDE_BVH=0: the mesh chunk still launched another kernel")
+    check(bool(torch.isfinite(img).all()), "binary walk: image not finite")
+    diff = (img - wide_chunk).abs()
+    rel = float(diff.mean() / wide_chunk.abs().mean())
+    emit({"phase": "main_path", "scene": "envmap_mesh",
+          "entry": "path.render_chunk, GNX_WIDE_BVH=0",
+          "lanes_per_chunk": lanes,
+          "kernel_launches": {"packet_closest_hit": launches[0],
+                              "packet_any_hit": launches[1],
+                              "wide_closest_hit": 0, "wide_any_hit": 0},
+          "rays_per_path": float(n_rays) / lanes, "ms_per_chunk": ms,
+          "Mpaths_per_s": lanes / ms / 1e3,
+          "image_mean": float(img.mean()) / SPP_CHUNK,
+          "vs_wide_kernel_chunk": {
+              "max_abs_diff": float(diff.max()),
+              "mean_abs_diff": float(diff.mean()),
+              "mean_rel_diff": rel, "mean_rel_limit": 1e-3,
+              "pixels_differing": int((diff.amax(-1) > 0).sum())}})
+    check(rel < 1e-3, f"binary walk: the chunk differs from the wide "
+          f"kernels' by {rel} (mean, relative)")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: Whitted, direct lighting and the faithful path with Halton
+# ---------------------------------------------------------------------------
+
+WHITTED_DEPTH = 5
+MIRROR_ID = 4  # the mirror of presets.reference_materials
+
+
+def timed_render(mod, scene, cam, smp, cfg, *extra, reset):
+    """A warm-up chunk, then reset() (the launch counts go to 0) and
+    mod.render: (image, ms per chunk, peak MiB, chunks)."""
+    mod.render_chunk(scene, cam, smp, cfg, 0, cfg.spp_chunk, *extra)
+    torch.cuda.synchronize()
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    img = mod.render(scene, cam, smp, cfg, *extra)
+    torch.cuda.synchronize()
+    chunks = -(-cfg.spp // cfg.spp_chunk)
+    ms = (time.time() - t0) / chunks * 1e3
+    check(tuple(img.shape) == (cfg.height, cfg.width, 3)
+          and bool(torch.isfinite(img).all()), "bad image")
+    mean = float(img.mean())
+    check(0.05 < mean < 5.0, f"image mean {mean}: black or blown out")
+    return img, ms, torch.cuda.max_memory_allocated() / 2 ** 20, chunks
+
+
+def render_record(label, entry, cfg, ms, peak, chunks, mean, launches):
+    lanes = cfg.width * cfg.height * cfg.spp_chunk
+    return {"phase": "slice3_path", "scene": label, "entry": entry,
+            "sampler": "halton", "max_depth": cfg.max_depth, "spp": cfg.spp,
+            "lanes_per_chunk": lanes, "chunks": chunks, "ms_per_chunk": ms,
+            "Mpaths_per_s": lanes / ms / 1e3, "image_mean": mean,
+            "peak_device_MiB": peak, "kernel_launches": launches}
+
+
+def all_counts(ch, wb, pk):
+    return {"closest_hit": ch.launch_count,
+            "wide_closest_hit": wb.closest_launch_count,
+            "wide_any_hit": wb.any_launch_count,
+            "packet_closest_hit": pk.closest_launch_count,
+            "packet_any_hit": pk.any_launch_count}
+
+
+def camera_hits(scene, cam, cfg, smp):
+    """One chunk of camera rays cast at the scene: (pixel, sample, o, d, hit,
+    interaction)."""
+    from gnxraytracer_tpu_torch.constants import INFINITY
+    from gnxraytracer_tpu_torch.ops import samplers, trace
+    from gnxraytracer_tpu_torch.scene import camera
+
+    dev = scene.geom.vertices.device
+    hw = cfg.width * cfg.height
+    pixel = torch.arange(hw, dtype=torch.int32, device=dev).repeat(cfg.spp_chunk)
+    sample = torch.repeat_interleave(
+        torch.arange(cfg.spp_chunk, dtype=torch.int32, device=dev), hw)
+    p_film, t_u, p_lens = samplers.camera_sample(smp, pixel, sample, cfg.width)
+    o, d, _ = camera.generate_rays(cam, p_film, t_u, p_lens)
+    hit = trace.scene_intersect(
+        scene, cfg, o, d,
+        torch.full((o.shape[0],), INFINITY, dtype=torch.float32, device=dev))
+    return pixel, sample, o, d, hit, trace.make_interaction(scene, cfg, o, d, hit)
+
+
+def depth1_rays(scene, cam, cfg, smp):
+    """The rays Whitted casts at depth 1 in the mirror-mesh scene: camera
+    rays (one chunk) reflected where they hit the mirror, dead (t_max = 0)
+    elsewhere."""
+    from gnxraytracer_tpu_torch.constants import INFINITY
+    from gnxraytracer_tpu_torch.models import materials as mat_mod
+    from gnxraytracer_tpu_torch.ops import trace
+
+    _, _, o, d, hit, it = camera_hits(scene, cam, cfg, smp)
+    n = o.shape[0]
+    rows = mat_mod.gather_material_table(scene.materials,
+                                         torch.clamp(it.mat, min=0))
+    u = torch.full((n, 2), 0.5, dtype=torch.float32, device=o.device)
+    smp_b = mat_mod.sample(rows, None, cfg, trace.to_local(it, it.wo), u,
+                           u[:, 0])
+    go = hit.hit & smp_b.specular & smp_b.valid
+    o2, d2 = trace.spawn_ray(it, trace.to_world(it, smp_b.wi))
+    o2 = torch.where(go[:, None], o2, o).contiguous()
+    d2 = torch.where(go[:, None], d2, d).contiguous()
+    return o2, d2, torch.where(go, INFINITY, 0.0).to(torch.float32).contiguous()
+
+
+def depth0_shadow_rays(scene, cam, cfg, smp, li_idx):
+    """The shadow rays Whitted casts at depth 0 toward light li_idx: from
+    where the camera rays (one chunk) hit, to the light's Halton samples of
+    that depth; lanes that hit nothing or cannot be lit are dead."""
+    from gnxraytracer_tpu_torch.models import lights
+    from gnxraytracer_tpu_torch.models.integrators import whitted
+    from gnxraytracer_tpu_torch.ops import trace
+
+    pixel, sample, o, _, hit, it = camera_hits(scene, cam, cfg, smp)
+    dim_col = whitted._static_dim_fn(smp, pixel, sample)
+    base = whitted.CAMERA_DIMS + 2 * li_idx
+    u_l = torch.stack([dim_col(base), dim_col(base + 1)], dim=-1)
+    lidx = torch.full((o.shape[0],), li_idx, dtype=torch.int32, device=o.device)
+    ls = lights.sample_li(scene, cfg, lidx, it.p, u_l)
+    so, sd, st = trace.shadow_ray(it, ls.target, ls.is_infinite)
+    st = torch.where(hit.hit & (ls.pdf > 0), st, 0.0).to(torch.float32)
+    return so.contiguous(), sd.contiguous(), st.contiguous()
+
+
+def cast_both_walks(dev, scene, cfg, wb, pk, rays_label, o, d, t, need_hits,
+                    any_hit=False):
+    """One ray set through the closest-hit (or, with any_hit, the any-hit)
+    kernels of both walks of a scene's tree: each against its plain walk on
+    a sub-sample, its times, and its visits a live ray."""
+    n = o.shape[0]
+    sub = torch.arange(0, n, n // PLAIN_SUBSAMPLE, device=dev)[:PLAIN_SUBSAMPLE]
+    args_sub = [x[sub].contiguous() for x in (o, d, t)]
+    alive = max(int((args_sub[2] > 0).sum()), 1)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    kind = "any_hit" if any_hit else "closest_hit"
+    out = {"phase": "slice3_cast", "scene": "cornell + mirror mesh",
+           "kernels": kind, "rays": rays_label, "n_rays": n,
+           "alive_fraction": float((t > 0).float().mean())}
+    wide = scene.bvh.wide
+    hits = {}
+    for label, mod, pack, lo, hi in (
+            ("packet", pk, scene.bvh.packet, scene.bvh.packet.nodes[0, 0:3],
+             scene.bvh.packet.nodes[0, 3:6]),
+            ("wide", wb, wide, wide.frame[0:3],
+             wide.frame[0:3] + 255.0 * wide.frame[3:6])):
+        cast = getattr(mod, f"{label}_{kind}")
+        plain = getattr(mod, f"{label}_{kind}_reference")
+        os_, ds_, ts_ = sorted_rays(o, d, t, lo, hi, cfg.sort_key)
+        stats = {}
+        ref = plain(pack, *args_sub, stats=stats)
+        got = cast(pack, o, d, t)
+        hits[label] = got
+        if any_hit:
+            check(torch.equal(got[sub], ref), f"{rays_label}, {label}: occ "
+                  f"differs on {int((got[sub] != ref).sum())} lanes")
+            check(not bool(got[t <= 0].any()),
+                  f"{rays_label}, {label}: a dead lane is occluded")
+            check(not need_hits or int(ref.sum()) > 0,
+                  f"{rays_label}, {label}: no ray is occluded")
+            err, frac = 0.0, {"occluded_fraction": float(got.float().mean())}
+        else:
+            err = compare_wide_hits(f"{rays_label}, {label}",
+                                    type(got)(*(x[sub] for x in got)), ref,
+                                    args_sub[2], need_hits=need_hits)
+            frac = {"hit_fraction": float(got.hit.float().mean())}
+        out[label] = dict(
+            unsorted_ms=time_cuda(lambda: cast(pack, o, d, t, sort=False),
+                                  10, flush),
+            sorted_ms=time_cuda(lambda: cast(pack, os_, ds_, ts_, sort=False),
+                                10, flush),
+            wrapper_ms=time_cuda(
+                lambda: cast(pack, o, d, t, sort_key=cfg.sort_key), 10, flush),
+            node_visits_per_live_ray=stats["node_visits"] / alive,
+            leaf_rows_per_live_ray=stats["leaf_visits"] / alive,
+            max_abs_err_vs_plain=err, **frac)
+    if any_hit:
+        check(torch.equal(hits["packet"], hits["wide"]),
+              f"{rays_label}: binary and wide kernels disagree on occlusion")
+        return out
+    check(torch.equal(hits["packet"].hit, hits["wide"].hit)
+          and torch.allclose(hits["packet"].t, hits["wide"].t, rtol=T_RTOL),
+          f"{rays_label}: binary and wide kernels disagree on hits or t")
+    out["tri_differs_on_lanes"] = int(
+        (hits["packet"].tri != hits["wide"].tri).sum())
+    return out
+
+
+def phase_slice3(dev, ch, wb, pk):
+    """Phase 8.  Returns nothing: every number goes out on its own line."""
+    from gnxraytracer_tpu_torch import cli
+    from gnxraytracer_tpu_torch.models.integrators import direct, path, whitted
+    from gnxraytracer_tpu_torch.ops import samplers
+    from gnxraytracer_tpu_torch.scene import presets
+    from gnxraytracer_tpu_torch.scene.loaders import make_test_mesh
+    from gnxraytracer_tpu_torch.scene.scene import MAT_MIRROR
+
+    # (a) the reference application's default workload: Whitted, Cornell,
+    # depth 5, Halton, 2M lanes a chunk (8 spp), 16 of its 32 spp
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, device=dev)
+    cfg = path.make_config(scene, WIDTH, HEIGHT, spp=16,
+                           max_depth=WHITTED_DEPTH, spp_chunk=8,
+                           use_pallas=True)
+    smp = samplers.make_halton_sampler(16, WIDTH, HEIGHT, device=dev)
+    check(not cfg.use_bvh and cfg.n_lights == 3, f"unexpected config {cfg}")
+    reset = functools.partial(reset_counts, ch, wb, pk)
+    img, ms, peak, chunks = timed_render(whitted, scene, cam, smp, cfg,
+                                         reset=reset)
+    counts = all_counts(ch, wb, pk)
+    # no specular material is assigned: one depth step a chunk, its
+    # closest-hit cast through kernel 1
+    check(counts["closest_hit"] == chunks and sum(counts.values()) == chunks,
+          f"whitted/cornell: launches {counts}")
+    emit(render_record("cornell", "whitted.render", cfg, ms, peak, chunks,
+                       float(img.mean()), counts))
+
+    # (b) the CLI with its default flags (Halton, depth 5) on the mesh
+    # preset, as it comes (wide kernels) and through the binary ones
+    lights = 2  # the two area-light triangles; the skybox is skipped
+    for label, ctx, want in (
+            ("wide", contextlib.nullcontext(), "wide"),
+            ("GNX_WIDE_BVH=0", binary_walk(), "packet")):
+        reset_counts(ch, wb, pk)
+        with tempfile.TemporaryDirectory() as out_dir, ctx:
+            out = os.path.join(out_dir, "cli.npy")
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                cli.main(["render", "--preset", "cornell-mesh", "--integrator",
+                          "whitted", "--spp", "8", "--out-npy", out])
+            cli_img = np.load(out)
+        counts = all_counts(ch, wb, pk)
+        frames = [json.loads(l) for l in log.getvalue().splitlines()
+                  if l.startswith("{") and "frame_time_s" in l]
+        # the preset's mesh is matte: one depth step a chunk, 2 chunks
+        expect = {f"{want}_closest_hit": 2, f"{want}_any_hit": 2 * lights}
+        check(all(counts[k] == (expect.get(k, 0)) for k in counts),
+              f"CLI whitted/cornell-mesh ({label}): launches {counts}")
+        check(cli_img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(cli_img).all()
+              and cli_img.mean() > 0.05, "CLI whitted: bad image")
+        emit({"phase": "slice3_path", "scene": "cornell-mesh (20,480 triangles)",
+              "entry": f"cli render --preset cornell-mesh --integrator whitted "
+                       f"--spp 8 ({label})", "sampler": "halton",
+              "max_depth": WHITTED_DEPTH, "kernel_launches": counts,
+              "frame_time_s": [f["frame_time_s"] for f in frames],
+              "image_mean": float(cli_img.mean())})
+
+    # (c) the same scene with a mirror mesh: Whitted recurses to depth 5 and
+    # the reflected rays start inside the mesh's tree
+    t0 = time.time()
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, mesh=make_test_mesh(5),
+                                     bvh=True, dragon_material=MIRROR_ID,
+                                     device=dev)
+    build_s = time.time() - t0
+    cfg = path.make_config(scene, WIDTH, HEIGHT, spp=8,
+                           max_depth=WHITTED_DEPTH, spp_chunk=SPP_CHUNK)
+    check(cfg.use_bvh and cfg.bvh_mode == "pallas" and MAT_MIRROR in cfg.mat_kinds,
+          f"unexpected mirror-mesh configuration {cfg}")
+    smp = samplers.make_halton_sampler(8, WIDTH, HEIGHT, device=dev)
+    images = {}
+    for mod, name, per_chunk in (
+            (whitted, "whitted.render",
+             (WHITTED_DEPTH, WHITTED_DEPTH * lights)),
+            # per bounce 0..5: the closest hit, and estimate_direct's shadow
+            # ray and BSDF-side closest hit
+            (path, "path.render(fast_mis=False)",
+             (2 * (WHITTED_DEPTH + 1), WHITTED_DEPTH + 1))):
+        for label, ctx, want in (("wide", contextlib.nullcontext(), "wide"),
+                                 ("GNX_WIDE_BVH=0", binary_walk(), "packet")):
+            with ctx:
+                img, ms, peak, chunks = timed_render(mod, scene, cam, smp, cfg,
+                                                     reset=reset)
+            counts = all_counts(ch, wb, pk)
+            expect = {f"{want}_closest_hit": per_chunk[0] * chunks,
+                      f"{want}_any_hit": per_chunk[1] * chunks}
+            check(all(counts[k] == expect.get(k, 0) for k in counts),
+                  f"{name} mirror mesh ({label}): launches {counts}, "
+                  f"expected {expect}")
+            images[(name, label)] = img
+            rec = render_record("cornell + mirror mesh (20,480 triangles, "
+                                f"{cfg.n_big} kept out of the tree)",
+                                f"{name} ({label})", cfg, ms, peak, chunks,
+                                float(img.mean()), counts)
+            rec["bvh_build_s"] = build_s
+            emit(rec)
+        a, b = images[(name, "wide")], images[(name, "GNX_WIDE_BVH=0")]
+        rel = float((a - b).abs().mean() / a.abs().mean())
+        check(rel < 1e-3, f"{name}: binary and wide images differ by {rel}")
+
+    # isolated casts through both walks: the depth-1 rays (the mesh is
+    # convex and the walls are kept out of the tree, so they leave it without
+    # a hit), and rays that mostly enter the tree
+    n = WIDTH * HEIGHT * SPP_CHUNK
+    box_lo, box_hi = scene.bvh.packet.nodes[0, 0:3], scene.bvh.packet.nodes[0, 3:6]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ro = box_lo + (box_hi - box_lo) * (
+        torch.rand((n, 3), generator=gen, device=dev) * 1.6 - 0.3)
+    rdir = torch.randn((n, 3), generator=gen, device=dev)
+    rdir = rdir / torch.linalg.norm(rdir, dim=1, keepdim=True)
+    t_far = torch.full((n,), 1e30, dtype=torch.float32, device=dev)
+    # the first light that Whitted samples (the skybox is skipped)
+    li_idx = next(i for i, k in enumerate(cfg.light_kind_seq) if k != 5)
+    for rays_label, (o, d, t), need_hits, any_hit in (
+            ("Whitted depth 1 (reflected off the mirror mesh)",
+             depth1_rays(scene, cam, cfg, smp), False, False),
+            ("incoherent: origins in 1.6x the mesh's box, any direction",
+             (ro.contiguous(), rdir.contiguous(), t_far), True, False),
+            (f"Whitted depth 0 shadow rays toward light {li_idx}",
+             depth0_shadow_rays(scene, cam, cfg, smp, li_idx), True, True),
+            ("incoherent shadow rays: the same origins and directions",
+             (ro.contiguous(), rdir.contiguous(), t_far), True, True)):
+        emit(cast_both_walks(dev, scene, cfg, wb, pk, rays_label, o, d, t,
+                             need_hits, any_hit))
+
+    # (d) direct lighting, both strategies
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, device=dev)
+    cfg = path.make_config(scene, WIDTH, HEIGHT, spp=8,
+                           max_depth=WHITTED_DEPTH, spp_chunk=SPP_CHUNK,
+                           use_pallas=True)
+    smp = samplers.make_halton_sampler(8, WIDTH, HEIGHT, device=dev)
+    for strategy, lights_sampled in (("one", 1), ("all", cfg.n_lights)):
+        img, ms, peak, chunks = timed_render(direct, scene, cam, smp, cfg,
+                                             strategy, reset=reset)
+        counts = all_counts(ch, wb, pk)
+        # per depth: the cast of the depth, and estimate_direct's BSDF-side
+        # cast for each light sampled
+        want = WHITTED_DEPTH * (1 + lights_sampled) * chunks
+        check(counts["closest_hit"] == want and sum(counts.values()) == want,
+              f"direct({strategy}): launches {counts}, expected {want}")
+        emit(render_record("cornell", f"direct.render(strategy={strategy!r})",
+                           cfg, ms, peak, chunks, float(img.mean()), counts))
 
 
 def count_dispatched_ops(fn):
@@ -761,23 +1380,27 @@ def count_dispatched_ops(fn):
     return counter.n
 
 
-def profile_chunk(label, scene, cam, cfg, smp):
-    """Where one 1M-lane chunk spends its time: device-busy share, the top
-    kernels by device time (torch.profiler) and the operators dispatched."""
+def profile_chunk(label, scene, cam, cfg, smp, mod=None):
+    """Where one chunk spends its time: device-busy share, the top kernels
+    by device time (torch.profiler) and the operators dispatched.  mod: the
+    integrator module (default: path)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gnxraytracer_tpu_torch.models.integrators import path
 
-    path.render_chunk(scene, cam, smp, cfg, 0, SPP_CHUNK)
+    mod = mod or path
+    n_spp = cfg.spp_chunk
+    chunk = lambda start: mod.render_chunk(scene, cam, smp, cfg, start, n_spp)
+    chunk(0)
     torch.cuda.synchronize()
     t0 = time.time()
-    path.render_chunk(scene, cam, smp, cfg, 4, SPP_CHUNK)
+    chunk(n_spp)
     torch.cuda.synchronize()
     wall_plain = (time.time() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        path.render_chunk(scene, cam, smp, cfg, 4, SPP_CHUNK)
+        chunk(n_spp)
         torch.cuda.synchronize()
         wall_prof = (time.time() - t0) * 1e3
     # kernel-level events only: an operator's row repeats the device time of
@@ -787,11 +1410,11 @@ def profile_chunk(label, scene, cam, cfg, smp):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    chunk_ops = count_dispatched_ops(
-        lambda: path.render_chunk(scene, cam, smp, cfg, 4, SPP_CHUNK))
+    chunk_ops = count_dispatched_ops(lambda: chunk(n_spp))
     ours = [r for r in rows if "closest_hit_kernel" in r[0]
-            or "wide_bvh_kernel" in r[0]]
-    emit({"phase": "profile", "scene": label, "chunk_wall_ms": wall_plain,
+            or "wide_bvh_kernel" in r[0] or "packet_bvh_kernel" in r[0]]
+    emit({"phase": "profile", "scene": label,
+          "lanes": cfg.width * cfg.height * n_spp, "chunk_wall_ms": wall_plain,
           "chunk_wall_ms_profiled": wall_prof,
           "device_busy_ms": busy if rows else "not measured",
           # against the unprofiled wall time: the profiler slows the host
@@ -826,6 +1449,28 @@ def phase_profile(dev, mesh):
                              "one_bounce_sampler_dims": dims_ops}})
     profile_chunk("envmap_mesh", *mesh[:4])
 
+    # one Whitted chunk of each kind of phase 8
+    from gnxraytracer_tpu_torch.models.integrators import path, whitted
+    from gnxraytracer_tpu_torch.scene import presets
+    from gnxraytracer_tpu_torch.scene.loaders import make_test_mesh
+
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, device=dev)
+    cfg = path.make_config(scene, WIDTH, HEIGHT, spp=16,
+                           max_depth=WHITTED_DEPTH, spp_chunk=8, use_pallas=True)
+    smp = samplers.make_halton_sampler(16, WIDTH, HEIGHT, device=dev)
+    profile_chunk("cornell, whitted, halton", scene, cam, cfg, smp, whitted)
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, mesh=make_test_mesh(5),
+                                     bvh=True, dragon_material=MIRROR_ID,
+                                     device=dev)
+    cfg = path.make_config(scene, WIDTH, HEIGHT, spp=8,
+                           max_depth=WHITTED_DEPTH, spp_chunk=SPP_CHUNK)
+    smp = samplers.make_halton_sampler(8, WIDTH, HEIGHT, device=dev)
+    profile_chunk("cornell + mirror mesh, whitted, halton, wide kernels",
+                  scene, cam, cfg, smp, whitted)
+    with binary_walk():
+        profile_chunk("cornell + mirror mesh, whitted, halton, binary kernels",
+                      scene, cam, cfg, smp, whitted)
+
 
 def phase_golden(dev):
     from gnxraytracer_tpu_torch.models.integrators import path
@@ -855,6 +1500,45 @@ def phase_golden(dev):
           "mean_limit": 0.02})
     check(berr < 0.025, f"golden: block8 error {berr}")
     check(merr < 0.02, f"golden: mean error {merr}")
+
+
+def phase_goldens_halton(dev):
+    """Phase 9: the three Cornell goldens through this slice's integrators,
+    32 spp Halton with their default configuration, on the card."""
+    from gnxraytracer_tpu_torch.models.integrators import direct, path, whitted
+    from gnxraytracer_tpu_torch.ops import samplers
+    from gnxraytracer_tpu_torch.scene import presets
+
+    mods = {"path": path, "direct": direct, "whitted": whitted}
+
+    def block_mean(img, b=8):
+        hh, ww, c = img.shape
+        return img[:hh // b * b, :ww // b * b].reshape(
+            hh // b, b, ww // b, b, c).mean((1, 3))
+
+    for name in ("ref_whitted_cornell", "ref_direct_cornell", "ref_path_cornell"):
+        z = np.load(os.path.join(HERE, "tests", "golden", f"{name}.npz"))
+        ref, meta = z["image"], json.loads(str(z["meta"]))
+        w, h, spp = meta["w"], meta["h"], 32
+        scene, cam = presets.cornell_box(w, h, sigma=meta["sigma"],
+                                         skybox=bool(meta["skybox"]), device=dev)
+        cfg = path.make_config(scene, w, h, spp=spp,
+                               max_depth=meta["max_depth"], spp_chunk=32,
+                               use_pallas=True)
+        smp = samplers.make_halton_sampler(spp, w, h, device=dev)
+        ours = mods[meta["integrator"]].render(scene, cam, smp, cfg).cpu().numpy()
+        check(np.isfinite(ours).all(), f"{name}: the image is not finite")
+        berr = float(np.abs(block_mean(ours) - block_mean(ref)).mean()
+                     / ref.mean())
+        merr = float((np.abs(ours.mean((0, 1)) - ref.mean((0, 1)))
+                      / ref.mean()).max())
+        emit({"phase": "golden", "reference": f"tests/golden/{name}.npz",
+              "integrator": meta["integrator"], "sampler": "halton", "spp": spp,
+              "width": w, "height": h, "max_depth": meta["max_depth"],
+              "block8_rel_err": berr, "limit": 0.035,
+              "channel_mean_rel_err": merr, "mean_limit": 0.03})
+        check(berr < 0.035, f"{name}: block8 error {berr}")
+        check(merr < 0.03, f"{name}: channel mean error {merr}")
 
 
 def main():
@@ -900,17 +1584,26 @@ def main():
         ch, record = phase_kernels(dev)
         with tempfile.TemporaryDirectory() as tmp:
             mesh = mesh_setup(dev, tmp)
-            wb, rec_closest, rec_any = phase_wide_kernels(dev, *mesh[:3])
-            record["launches"] = phase_main_path(dev, ch, wb)
-            rec_closest["launches"], rec_any["launches"] = phase_mesh_path(
-                dev, ch, wb, mesh, tmp)
-            records = [record, rec_closest, rec_any]
+            rays = mesh_rays(dev, *mesh[:3])
+            wb, rec_closest, rec_any, wide_times, wide_visits = \
+                phase_wide_kernels(dev, mesh[0], mesh[2], rays)
+            pk, rec_pclosest, rec_pany = phase_packet_kernels(
+                dev, mesh[0], mesh[2], rays, wide_times, wide_visits)
+            del rays
+            record["launches"] = phase_main_path(dev, ch, wb, pk)
+            (rec_closest["launches"], rec_any["launches"]), wide_chunk = \
+                phase_mesh_path(dev, ch, wb, pk, mesh, tmp)
+            rec_pclosest["launches"], rec_pany["launches"] = \
+                phase_mesh_path_binary(dev, ch, wb, pk, mesh, wide_chunk)
+            records = [record, rec_closest, rec_any, rec_pclosest, rec_pany]
             for r in records:
                 check(r["launches"] > 0,
                       f"a main path never launched the kernel {r['name']}")
+            phase_slice3(dev, ch, wb, pk)
             if "--profile" in sys.argv[1:]:
                 phase_profile(dev, mesh)
         phase_golden(dev)
+        phase_goldens_halton(dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

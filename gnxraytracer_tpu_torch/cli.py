@@ -6,11 +6,17 @@ Runs on the CUDA device unless ``--cpu`` is given; without a CUDA device
 and without ``--cpu`` it stops with an error.  On a CUDA device the casts
 go through the hand-written kernels: the brute-force closest hit
 (use_pallas=True) and, for the presets with a BVH, the wide-BVH closest-hit
-and any-hit kernels (bvh_mode="pallas").
+and any-hit kernels (bvh_mode="pallas"), or with GNX_WIDE_BVH=0 in the
+environment the binary threaded-BVH ones.  The defaults are the JAX CLI's:
+the faithful path estimator with the Halton sampler at depth 5.
 
 Usage:
+  python -m gnxraytracer_tpu_torch.cli render --preset cornell --spp 64 \\
+      --out out.png [--cpu]
+  python -m gnxraytracer_tpu_torch.cli render --preset cornell-mesh \\
+      --integrator whitted --spp 32 --out whitted.png
   python -m gnxraytracer_tpu_torch.cli render --preset cornell \\
-      --sampler sobol --fast-mis --spp 64 --out out.png [--cpu]
+      --sampler sobol --fast-mis --spp 64 --out out.png
   python -m gnxraytracer_tpu_torch.cli render --preset envmap \\
       --sampler sobol --fast-mis --max-depth 8 --spp 64 --out mesh.png
   python -m gnxraytracer_tpu_torch.cli presets
@@ -57,6 +63,16 @@ def build_preset(name, width, height, device):
     raise SystemExit(f"unknown preset {name}; try: {', '.join(PRESETS)}")
 
 
+def get_integrator(name):
+    if name == "volpath":
+        raise SystemExit(
+            "integrator 'volpath' is not ported to PyTorch yet; ported: "
+            "path, whitted, direct")
+    from .models.integrators import direct, path, whitted
+
+    return {"path": path, "whitted": whitted, "direct": direct}[name]
+
+
 def cmd_render(args):
     import torch
 
@@ -65,18 +81,7 @@ def cmd_render(args):
     from .utils.device import resolve_device
     from .utils.image import save_png
 
-    if args.integrator != "path":
-        raise SystemExit(
-            f"integrator {args.integrator!r} is not ported to PyTorch yet; "
-            "ported: path (with --sampler sobol --fast-mis)")
-    if args.sampler == "halton":
-        raise SystemExit(
-            "the Halton sampler is not ported to PyTorch yet; use "
-            "--sampler sobol --fast-mis")
-    if not args.fast_mis:
-        raise SystemExit(
-            "the faithful three-cast estimator is not ported to PyTorch yet; "
-            "use --sampler sobol --fast-mis")
+    integ = get_integrator(args.integrator)
     if args.live or args.view:
         raise SystemExit("the live viewers (--live, --view) are not ported "
                          "to PyTorch yet")
@@ -91,7 +96,10 @@ def cmd_render(args):
         spp_chunk=args.spp_chunk, rr_threshold=args.rr_threshold,
         fast_mis=args.fast_mis, use_pallas=device.type == "cuda",
     )
-    if args.sampler == "sobol":
+    if args.sampler == "halton":
+        sampler = samplers.make_halton_sampler(args.spp, args.width,
+                                               args.height, device=device)
+    elif args.sampler == "sobol":
         sampler = samplers.make_sobol_sampler(args.spp, device=device)
     else:
         sampler = samplers.make_random_sampler(args.spp, seed=args.seed,
@@ -114,7 +122,7 @@ def cmd_render(args):
     while s < args.spp:
         ns = min(args.spp_chunk, args.spp - s)
         t0 = time.time()
-        acc = acc + path_mod.render_chunk(scene, camera, sampler, cfg, s, ns)
+        acc = acc + integ.render_chunk(scene, camera, sampler, cfg, s, ns)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.time() - t0

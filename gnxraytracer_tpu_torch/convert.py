@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from .models.integrators.path import RenderCfg
-from .ops.samplers import Sampler
+from .ops.samplers import Sampler, halton_sampler_from_tables
 from .scene.camera import Camera
 from .ops.bvh import bvh_from_numpy
 from .scene.scene import EnvMap, Geometry, LightTable, MaterialTable, Scene
@@ -64,7 +64,8 @@ def scene_from_numpy(tree, device="cuda"):
 def bvh_from_numpy_tree(bvh, device="cuda"):
     """JAX-package BVH (numpy leaves) -> the port's BVH.  The binary tables
     carry across as they are; the width-8 table the port walks is made from
-    them (ops/wbvh.build_wide_pack), so both packages walk the same tree.
+    them (ops/wbvh.build_wide_pack), and so is the binary threaded table
+    (ops/bvh.build_packet_pack), so both packages walk the same tree.
     The JAX package's treelet tables exist to fit the TPU's fast memory and
     are not carried."""
     if bvh.first8 is None:
@@ -93,11 +94,17 @@ def camera_from_numpy(cam, device="cuda"):
 
 
 def sampler_from_numpy(smp, device="cuda"):
-    """JAX-package Sampler -> the port's Sampler (random and sobol kinds)."""
+    """JAX-package Sampler -> the port's Sampler.  Of a Halton sampler the
+    per-film pixel_offset table and stride / exp2 / scale3 carry across; its
+    primes, prime_sums and perms are the fixed tables of ops/lds.py, which
+    the port makes itself (the tests hold them equal)."""
     dev = resolve_device(device)
+    if smp.kind == "halton":
+        return halton_sampler_from_tables(
+            smp.spp, smp.seed, np.asarray(smp.pixel_offset), smp.stride,
+            smp.exp2, smp.scale3, device=dev)
     if smp.kind not in ("random", "sobol"):
-        raise NotImplementedError(
-            f"sampler kind {smp.kind!r} is not ported yet")
+        raise ValueError(f"unknown sampler kind {smp.kind!r}")
     return Sampler(kind=smp.kind, spp=int(smp.spp), seed=int(smp.seed),
                    device=str(dev))
 

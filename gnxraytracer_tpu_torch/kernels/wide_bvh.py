@@ -51,6 +51,39 @@ def _safe_inv(v):
     return 1.0 / torch.where(torch.abs(v) < 1e-20, tiny, v)
 
 
+def _leaf_rows(pack, row, li, o, frame, t_best, tri, u, v, found, any_hit):
+    """Lanes `li` each test leaf row `row` of the pack (LEAF_SIZE watertight
+    tests in row order, strict t < t_best, padded ids inert) and update the
+    per-ray state tensors in place: found, and for the closest hit t_best,
+    tri, u, v.  Returns the lanes' found flags.  Shared by the plain walks
+    over the wide and the binary tables."""
+    m0, m1, sx, sy, sz = frame
+    lr = pack.leafs[row]                                   # (M, 36)
+    ids = pack.tid[row]                                    # (M, 4)
+    ol = o[li]
+    fr = (ol[:, 0], ol[:, 1], ol[:, 2], m0[li], m1[li],
+          sx[li], sy[li], sz[li])
+    tb = t_best[li]
+    tri_l, u_l, v_l, found_l = tri[li], u[li], v[li], found[li]
+    for k in range(LEAF_SIZE):
+        c = 9 * k
+        valid, t, _b0, b1, b2 = _watertight_one(
+            *fr, tb, (lr[:, c + 0], lr[:, c + 1], lr[:, c + 2]),
+            (lr[:, c + 3], lr[:, c + 4], lr[:, c + 5]),
+            (lr[:, c + 6], lr[:, c + 7], lr[:, c + 8]))
+        valid = valid & (ids[:, k] >= 0) & (t < tb)
+        found_l = found_l | valid
+        if not any_hit:
+            tb = torch.where(valid, t, tb)
+            tri_l = torch.where(valid, ids[:, k], tri_l)
+            u_l = torch.where(valid, b1, u_l)
+            v_l = torch.where(valid, b2, v_l)
+    found[li] = found_l
+    if not any_hit:
+        t_best[li], tri[li], u[li], v[li] = tb, tri_l, u_l, v_l
+    return found_l
+
+
 def _walk(pack, o, d, t_max, any_hit, stats=None):
     """The lockstep walk both plain versions share.  Returns (t_best, tri,
     u, v, found); tri = -1 where nothing was found."""
@@ -124,31 +157,10 @@ def _walk(pack, o, d, t_max, any_hit, stats=None):
         if li.numel():
             leaf_visits += int(li.numel())
             row = (-entry[is_leaf].long() - 1)
-            lr = pack.leafs[row]                                   # (M, 36)
-            ids = pack.tid[row]                                    # (M, 4)
-            ol = o[li]
-            fr = (ol[:, 0], ol[:, 1], ol[:, 2], m0[li], m1[li],
-                  sx[li], sy[li], sz[li])
-            tb = t_best[li]
-            tri_l, u_l, v_l, found_l = tri[li], u[li], v[li], found[li]
-            for k in range(LEAF_SIZE):
-                c = 9 * k
-                valid, t, _b0, b1, b2 = _watertight_one(
-                    *fr, tb, (lr[:, c + 0], lr[:, c + 1], lr[:, c + 2]),
-                    (lr[:, c + 3], lr[:, c + 4], lr[:, c + 5]),
-                    (lr[:, c + 6], lr[:, c + 7], lr[:, c + 8]))
-                valid = valid & (ids[:, k] >= 0) & (t < tb)
-                found_l = found_l | valid
-                if not any_hit:
-                    tb = torch.where(valid, t, tb)
-                    tri_l = torch.where(valid, ids[:, k], tri_l)
-                    u_l = torch.where(valid, b1, u_l)
-                    v_l = torch.where(valid, b2, v_l)
-            found[li] = found_l
+            found_l = _leaf_rows(pack, row, li, o, (m0, m1, sx, sy, sz),
+                                 t_best, tri, u, v, found, any_hit)
             if any_hit:
                 sp[li[found_l]] = 0  # the first hit before t_max ends the walk
-            else:
-                t_best[li], tri[li], u[li], v[li] = tb, tri_l, u_l, v_l
     if stats is not None:
         stats["node_visits"] = stats.get("node_visits", 0) + node_visits
         stats["leaf_visits"] = stats.get("leaf_visits", 0) + leaf_visits
@@ -196,40 +208,69 @@ def _kernel_fns():
     return _fns
 
 
-def _check_args(pack, o, d, t_max):
+def _check_rays(o, d, t_max, what):
+    """The ray arguments of a BVH cast: (N, their device)."""
     n = o.shape[0]
     dev = o.device
-    f32, i32 = torch.float32, torch.int32
-    _check("o", o, (n, 3), f32, dev)
-    _check("d", d, (n, 3), f32, dev)
-    _check("t_max", t_max, (n,), f32, dev)
-    if pack.rec.ndim != 2 or pack.rec.shape[0] < 1:
-        raise ValueError("pack.rec must be (NW, 32) with NW >= 1")
-    _check("pack.rec", pack.rec, (pack.rec.shape[0], REC_WORDS), i32, dev)
-    _check("pack.frame", pack.frame, (8,), f32, dev)
-    rows = pack.leafs.shape[0]
-    _check("pack.leafs", pack.leafs, (rows, LEAF_SIZE * 9), f32, dev)
-    _check("pack.tid", pack.tid, (rows, LEAF_SIZE), i32, dev)
+    _check("o", o, (n, 3), torch.float32, dev)
+    _check("d", d, (n, 3), torch.float32, dev)
+    _check("t_max", t_max, (n,), torch.float32, dev)
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"the wide BVH casts run on cuda or cpu tensors, not {dev}")
+        raise ValueError(f"the {what} BVH casts run on cuda or cpu tensors, not {dev}")
     return n, dev
 
 
-def _sorted_rays(pack, o, d, t_max, sort, sort_key):
-    """Rays in coherence order (ops/bvh.ray_sort_perm over the pack's frame,
-    which spans the tree's bounds) and the inverse permutation."""
+def _check_leaf_tables(pack, dev):
+    rows = pack.leafs.shape[0]
+    _check("pack.leafs", pack.leafs, (rows, LEAF_SIZE * 9), torch.float32, dev)
+    _check("pack.tid", pack.tid, (rows, LEAF_SIZE), torch.int32, dev)
+
+
+def _check_args(pack, o, d, t_max):
+    n, dev = _check_rays(o, d, t_max, "wide")
+    if pack.rec.ndim != 2 or pack.rec.shape[0] < 1:
+        raise ValueError("pack.rec must be (NW, 32) with NW >= 1")
+    _check("pack.rec", pack.rec, (pack.rec.shape[0], REC_WORDS), torch.int32, dev)
+    _check("pack.frame", pack.frame, (8,), torch.float32, dev)
+    _check_leaf_tables(pack, dev)
+    return n, dev
+
+
+def _sorted_cast(cast, o, d, t_max, root_box, sort, sort_key):
+    """cast(o, d, t_max), with `sort` on the rays in coherence order
+    (ops/bvh.ray_sort_perm over the tree's bounds (lo, hi) = root_box()) and
+    its result, a tensor or a NamedTuple of tensors, put back in the caller's
+    order.  Shared by the wrappers of the wide and the binary walks."""
     if not sort or o.shape[0] == 0:
-        return o, d, t_max, None
-    lo = pack.frame[0:3]
-    hi = lo + 255.0 * pack.frame[3:6]
-    perm, inv = ray_sort_perm(o, d, lo, hi, t_max=t_max, key_mode=sort_key)
-    return (o[perm].contiguous(), d[perm].contiguous(),
-            t_max[perm].contiguous(), inv)
+        return cast(o, d, t_max)
+    perm, inv = ray_sort_perm(o, d, *root_box(), t_max=t_max, key_mode=sort_key)
+    out = cast(o[perm].contiguous(), d[perm].contiguous(),
+               t_max[perm].contiguous())
+    if isinstance(out, torch.Tensor):
+        return out[inv]
+    return type(out)(*(x[inv] for x in out))
 
 
-def _launch_ok(err, name):
+def _launch(dev, fn, name, *args):
+    """fn(*args, stream) on the device's current stream; raises unless the
+    launch succeeded."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _empty_trihit(n, dev):
+    return TriHit(hit=torch.empty((n,), dtype=torch.bool, device=dev),
+                  t=torch.empty((n,), dtype=torch.float32, device=dev),
+                  tri=torch.empty((n,), dtype=torch.int32, device=dev),
+                  b=torch.empty((n, 3), dtype=torch.float32, device=dev))
+
+
+def _root_box(pack):
+    """The pack's frame spans the tree's bounds."""
+    lo = pack.frame[0:3]
+    return lo, lo + 255.0 * pack.frame[3:6]
 
 
 def _check_stack(pack, cap):
@@ -248,50 +289,48 @@ def wide_closest_hit(pack, o, d, t_max, sort=True, sort_key="oct_morton"):
     depend on it).  Returns TriHit(hit (N,) bool, t (N,) f32 — INFINITY on a
     miss, tri (N,) i32 — 0 on a miss, b (N,3) f32 = (1-u-v, u, v))."""
     n, dev = _check_args(pack, o, d, t_max)
-    o, d, t_max, inv = _sorted_rays(pack, o, d, t_max, sort, sort_key)
-    if dev.type == "cpu":
-        out = wide_closest_hit_reference(pack, o, d, t_max)
-    else:
+
+    def cast(o, d, t_max):
+        if dev.type == "cpu":
+            return wide_closest_hit_reference(pack, o, d, t_max)
         fn, _, cap = _kernel_fns()
         _check_stack(pack, cap)
-        out = TriHit(hit=torch.empty((n,), dtype=torch.bool, device=dev),
-                     t=torch.empty((n,), dtype=torch.float32, device=dev),
-                     tri=torch.empty((n,), dtype=torch.int32, device=dev),
-                     b=torch.empty((n, 3), dtype=torch.float32, device=dev))
+        out = _empty_trihit(n, dev)
         if n > 0:
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                _launch_ok(fn(pack.rec.data_ptr(), pack.frame.data_ptr(),
-                              pack.leafs.data_ptr(), pack.tid.data_ptr(),
-                              o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
-                              out.t.data_ptr(), out.tri.data_ptr(),
-                              out.b.data_ptr(), out.hit.data_ptr(), n, stream),
-                           "wide_closest_hit")
-                global closest_launch_count
-                closest_launch_count += 1
-    if inv is not None:
-        out = TriHit(*(x[inv] for x in out))
-    return out
+            _launch(dev, fn, "wide_closest_hit",
+                    pack.rec.data_ptr(), pack.frame.data_ptr(),
+                    pack.leafs.data_ptr(), pack.tid.data_ptr(),
+                    o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+                    out.t.data_ptr(), out.tri.data_ptr(), out.b.data_ptr(),
+                    out.hit.data_ptr(), n)
+            global closest_launch_count
+            closest_launch_count += 1
+        return out
+
+    return _sorted_cast(cast, o, d, t_max, lambda: _root_box(pack), sort,
+                        sort_key)
 
 
 def wide_any_hit(pack, o, d, t_max, sort=True, sort_key="oct_morton"):
     """Whether each of N rays hits anything before its t_max: (N,) bool.
     Arguments as for wide_closest_hit."""
     n, dev = _check_args(pack, o, d, t_max)
-    o, d, t_max, inv = _sorted_rays(pack, o, d, t_max, sort, sort_key)
-    if dev.type == "cpu":
-        occ = wide_any_hit_reference(pack, o, d, t_max)
-    else:
+
+    def cast(o, d, t_max):
+        if dev.type == "cpu":
+            return wide_any_hit_reference(pack, o, d, t_max)
         _, fn, cap = _kernel_fns()
         _check_stack(pack, cap)
         occ = torch.empty((n,), dtype=torch.bool, device=dev)
         if n > 0:
-            with torch.cuda.device(dev):
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                _launch_ok(fn(pack.rec.data_ptr(), pack.frame.data_ptr(),
-                              pack.leafs.data_ptr(), pack.tid.data_ptr(),
-                              o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
-                              occ.data_ptr(), n, stream), "wide_any_hit")
-                global any_launch_count
-                any_launch_count += 1
-    return occ if inv is None else occ[inv]
+            _launch(dev, fn, "wide_any_hit",
+                    pack.rec.data_ptr(), pack.frame.data_ptr(),
+                    pack.leafs.data_ptr(), pack.tid.data_ptr(),
+                    o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+                    occ.data_ptr(), n)
+            global any_launch_count
+            any_launch_count += 1
+        return occ
+
+    return _sorted_cast(cast, o, d, t_max, lambda: _root_box(pack), sort,
+                        sort_key)

@@ -2,8 +2,12 @@
 
 The recursive per-pixel Li() of a CPU path tracer becomes a bounce loop over
 a dense SoA ray wavefront: every lane is one (pixel, sample) path and dead
-lanes are masked.  Ported: the folded-MIS estimator (``fast_mis=True``), in
-which the extension ray doubles as the BSDF-side MIS sample of next-event
+lanes are masked.  Two estimators share the loop runner.  The faithful one
+(``fast_mis=False``, ``trace_paths``) makes three scene casts per bounce: the
+closest hit, and inside ``estimate_direct`` the shadow ray of the light sample
+and the re-intersection of the BSDF sample, with emission added only at
+bounce 0 and after a specular bounce.  The folded-MIS one (``fast_mis=True``)
+lets the extension ray double as the BSDF-side MIS sample of next-event
 estimation — two scene casts per bounce:
 
   * emission found by the extension ray, weighted by the power heuristic
@@ -16,13 +20,13 @@ estimation — two scene casts per bounce:
 
 ``pipeline_casts=True`` runs the software-pipelined loop
 (_trace_loop_pipelined), which compacts the wavefront between a bounce's cast
-and its shading.  The faithful three-cast estimator (``fast_mis=False``) is
-not ported yet and raises.
+and its shading.
 
 Sample-dimension layout per lane (stateless sampler, ops/samplers.py):
 dims 0-4 camera; per bounce b, base = 5 + 8b:
-  +0 light select, +1..2 uLight, +3..4 unused here, +5..6 BSDF extension
-  sample, +7 RR; one further dim per compaction stage at the end.
+  +0 light select, +1..2 uLight, +3..4 uScattering of estimate_direct
+  (faithful estimator only), +5..6 BSDF extension sample, +7 RR; one further
+  dim per compaction stage at the end.
 """
 
 from typing import NamedTuple
@@ -34,7 +38,7 @@ from ...constants import INFINITY
 from ...ops import samplers, trace
 from ...ops.sampling import power_heuristic
 from ...scene import camera as cam_mod
-from ...utils.math import absdot, cross, dot
+from ...utils.math import absdot, cross, dot, normalize
 from .. import lights as lights_mod
 from .. import materials as mat_mod
 
@@ -205,19 +209,208 @@ def _power_pmf(scene, nl):
 
 
 # ---------------------------------------------------------------------------
-# Faithful estimator: not ported
+# Direct lighting (one light sample + one BSDF sample, MIS-weighted)
 # ---------------------------------------------------------------------------
 
-def estimate_direct(*a, **kw):
-    raise NotImplementedError(
-        "the faithful three-cast EstimateDirect is not ported yet; use "
-        "fast_mis=True")
+def estimate_direct(scene, cfg, it, wo_local, u_light, u_scatter, light_idx,
+                    kd_override=None, mats_row=None, vis_fn=None, mask=None):
+    """Direct lighting from light `light_idx` for all lanes at once: the
+    light-sampling and the BSDF-sampling strategy, combined by the power
+    heuristic.
+
+    mats_row: optional pre-gathered per-lane MaterialTable.
+    vis_fn: must be None (it is the participating-media hook of the JAX
+    package, which is not ported yet).
+    mask: optional (N,) bool — lanes whose result will actually be used; the
+    two scene casts get t_max = 0 outside it, so the walks skip those lanes
+    (the caller's downstream where-mask makes the values irrelevant).
+    Returns (N,3) direct radiance (before division by light-select pdf)."""
+    if vis_fn is not None:
+        raise NotImplementedError(
+            "estimate_direct(vis_fn=...) serves participating media, which "
+            "are not ported yet")
+    n = it.p.shape[0]
+    dev = it.p.device
+    if mats_row is None:
+        mats_row = scene.materials
+        mat_idx = it.mat
+    else:
+        mat_idx = None
+
+    # ---- strategy 1: sample the light ------------------------------------
+    ls = lights_mod.sample_li(scene, cfg, light_idx, it.p, u_light)
+    wi_local = trace.to_local(it, ls.wi)
+    f_light, scat_pdf = mat_mod.evaluate(mats_row, mat_idx, cfg, wo_local,
+                                         wi_local, kd_override)
+    f_light = f_light * absdot(ls.wi, it.ns)[..., None]
+    contrib_possible = ((ls.pdf > 0) & torch.any(ls.li > 0, dim=-1)
+                        & torch.any(f_light > 0, dim=-1))
+    if mask is not None:
+        contrib_possible = contrib_possible & mask
+    # visibility (shadow ray) only where it can matter
+    so, sd, st = trace.shadow_ray(it, ls.target, ls.is_infinite)
+    st = torch.where(contrib_possible, st, 0.0)
+    occluded = trace.scene_occluded(scene, cfg, so, sd, st)
+    vis = contrib_possible & ~occluded
+    w_l = torch.where(ls.is_delta, 1.0,
+                      power_heuristic(1.0, ls.pdf, 1.0, scat_pdf))
+    ld_light = f_light * ls.li * (w_l / torch.clamp(ls.pdf, min=1e-12))[..., None]
+    ld = torch.where(vis[..., None], ld_light, 0.0)
+
+    # ---- strategy 2: sample the BSDF (non-delta lights only) --------------
+    smp = mat_mod.sample(mats_row, mat_idx, cfg, wo_local, u_scatter,
+                         u_scatter[..., 0], kd_override)
+    wi_world = trace.to_world(it, smp.wi)
+    f_b = smp.f * absdot(wi_world, it.ns)[..., None]
+    do_bsdf = ((~ls.is_delta) & smp.valid & (smp.pdf > 0)
+               & (torch.any(f_b > 0, dim=-1) | smp.specular))
+    l_pdf = lights_mod.pdf_li(scene, cfg, light_idx, it.p, wi_world)
+    w_b = torch.where(smp.specular, 1.0,
+                      power_heuristic(1.0, smp.pdf, 1.0, l_pdf))
+    # specular lanes: the specular weight already folds the pdf
+    contrib_scale = torch.where(
+        smp.specular[..., None], smp.weight,
+        f_b / torch.clamp(smp.pdf, min=1e-12)[..., None])
+    w_b = torch.where(do_bsdf & ((l_pdf > 0) | smp.specular), w_b, 0.0)
+    # trace the BSDF-sampled ray; add only if it hits *this* light (or the
+    # light is infinite and the ray escapes)
+    bo, bd = trace.spawn_ray(it, wi_world)
+    bhit_relevant = do_bsdf if mask is None else (do_bsdf & mask)
+    bhit = trace.scene_intersect(scene, cfg, bo, bd,
+                                 torch.where(bhit_relevant, INFINITY, 0.0))
+    li_b = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    if cfg.has_area:
+        hit_it_light = bhit.hit & (bhit.kind == trace.PRIM_TRI)
+        p0, p1, p2, tri_light = trace.tri_emission_attrs(
+            scene, cfg, torch.where(hit_it_light, bhit.prim, 0))
+        tri_light = torch.where(hit_it_light, tri_light, -1)
+        same_light = hit_it_light & (tri_light == light_idx)
+        # emitted radiance toward -wi
+        nl = normalize(cross(p1 - p0, p2 - p0))
+        le = lights_mod.area_light_emitted(scene, light_idx, nl, -bd,
+                                           cfg.reference_area_bug)
+        li_b = torch.where(same_light[..., None], le, li_b)
+    if cfg.has_skybox or cfg.has_env:
+        escaped = ~bhit.hit
+        lkind = scene.lights.kind[light_idx.long()]
+        if cfg.has_skybox:
+            # the skybox's radiance counts on the BSDF side even though its
+            # light-sampling side is black
+            m = escaped & (lkind == 5)
+            li_b = torch.where(m[..., None],
+                               lights_mod.skybox_le(scene, bo, bd), li_b)
+        if cfg.has_env:
+            m = escaped & (lkind == 4)
+            li_b = torch.where(m[..., None], lights_mod.envmap_le(scene, bd),
+                               li_b)
+    return ld + contrib_scale * li_b * w_b[..., None]
 
 
-def trace_paths(scene, cfg, sampler, pixel, sample, o, d, rd=None):
-    raise NotImplementedError(
-        "the faithful three-cast estimator (fast_mis=False) is not ported "
-        "yet; use fast_mis=True (CLI: --sampler sobol --fast-mis)")
+# ---------------------------------------------------------------------------
+# Faithful estimator: three scene casts per bounce
+# ---------------------------------------------------------------------------
+
+def _make_faithful_bounce(scene, cfg: RenderCfg, get_ub, n, rd=None):
+    """Per-bounce body of the faithful estimator (closest hit + NEE shadow +
+    NEE BSDF-side re-intersection).  Same dict-state layout as
+    _make_fast_bounce so the compaction runner is shared; prev_pdf/prev_p
+    are carried but unused here."""
+
+    def bounce(b, state):
+        ub = get_ub(b)
+        # dead lanes cast with t_max = 0 and can hit nothing
+        hit = trace.scene_intersect(scene, cfg, state["o"], state["d"],
+                                    torch.where(state["alive"], INFINITY, 0.0))
+        it = trace.make_interaction(scene, cfg, state["o"], state["d"], hit)
+
+        L = state["L"]
+        # emission at path vertex (bounce 0 or after specular)
+        emit_ok = state["alive"] & ((b == 0) | state["specular"])
+        if cfg.has_area:
+            is_emitter = hit.hit & (hit.kind == trace.PRIM_TRI) & (it.light >= 0)
+            le = lights_mod.area_light_emitted(
+                scene, torch.clamp(it.light, min=0), it.ng, -state["d"],
+                cfg.reference_area_bug)
+            L = L + torch.where((emit_ok & is_emitter)[..., None],
+                                state["beta"] * le, 0.0)
+        if cfg.has_skybox or cfg.has_env:
+            esc = emit_ok & ~hit.hit
+            le_inf = lights_mod.escaped_radiance(scene, cfg, state["o"],
+                                                 state["d"])
+            L = L + torch.where(esc[..., None], state["beta"] * le_inf, 0.0)
+
+        alive = state["alive"] & hit.hit & (b < cfg.max_depth)
+
+        # NEE (skipped for perfectly specular BSDFs)
+        wo_local = trace.to_local(it, it.wo)
+        mats_row = mat_mod.gather_material_table(scene.materials,
+                                                 torch.clamp(it.mat, min=0))
+        has_ns = mat_mod.has_nonspecular(mats_row, None, cfg)
+        u_sel = ub[:, 0]
+        u_light = ub[:, 1:3]
+        u_scat = ub[:, 3:5]
+        light_idx, light_pdf = _choose_light(scene, cfg, u_sel, it.p)
+        kd_ov = _resolve_kd_hit(scene, cfg, hit, it, rd, mats_row)
+        nee_ok = alive & has_ns
+        ld = estimate_direct(scene, cfg, it, wo_local, u_light, u_scat,
+                             light_idx, kd_ov, mats_row=mats_row, mask=nee_ok)
+        L = L + torch.where(
+            nee_ok[..., None],
+            state["beta"] * ld / torch.clamp(light_pdf, min=1e-12)[..., None],
+            0.0)
+
+        # extension: sample the BSDF
+        u_bsdf = ub[:, 5:7]
+        smp = mat_mod.sample(mats_row, None, cfg, wo_local, u_bsdf,
+                             u_bsdf[..., 0], kd_ov)
+        beta = state["beta"] * smp.weight
+        alive = alive & smp.valid & torch.any(beta > 0, dim=-1)
+        # etaScale update for specular transmission
+        entering = dot(it.wo, it.ng) > 0
+        eta2 = smp.eta * smp.eta
+        es_up = torch.where(entering, eta2, 1.0 / torch.clamp(eta2, min=1e-12))
+        eta_scale = torch.where(smp.specular & smp.transmission,
+                                state["eta_scale"] * es_up, state["eta_scale"])
+        wi_world = trace.to_world(it, smp.wi)
+        no, nd = trace.spawn_ray(it, wi_world)
+
+        # Russian roulette; q detached (see _fast_parts)
+        rr_max = torch.max(beta * eta_scale[..., None], dim=-1).values.detach()
+        do_rr = (rr_max < cfg.rr_threshold) & (b > 3)
+        q = torch.clamp(1.0 - rr_max, min=0.05)
+        u_rr = ub[:, 7]
+        killed = do_rr & (u_rr < q)
+        beta = torch.where((do_rr & ~killed)[..., None],
+                           beta / torch.clamp(1.0 - q, min=1e-6)[..., None], beta)
+        alive = alive & ~killed
+
+        a3 = alive[..., None]
+        out = dict(
+            o=torch.where(a3, no, state["o"]),
+            d=torch.where(a3, nd, state["d"]),
+            beta=torch.where(a3, beta, state["beta"]),
+            L=L,
+            alive=alive,
+            specular=torch.where(alive, smp.specular, state["specular"]),
+            eta_scale=torch.where(alive, eta_scale, state["eta_scale"]),
+            prev_pdf=state["prev_pdf"],
+            prev_p=state["prev_p"],
+        )
+        if cfg.count_rays:
+            # 1 closest-hit cast per alive-at-entry lane; estimate_direct's
+            # shadow ray + BSDF-side re-intersection for NEE candidates
+            out["nrays"] = (state["nrays"] + _count(state["alive"])
+                            + 2.0 * _count(nee_ok))
+        return out
+
+    return bounce
+
+
+def trace_paths(scene, cfg: RenderCfg, sampler, pixel, sample, o, d, rd=None):
+    """Wavefront path tracing with the faithful estimator (3 casts/bounce).
+    Returns (N,3) radiance, or ((N,3), n_rays) when cfg.count_rays."""
+    return _trace_loop(scene, cfg, sampler, pixel, sample, o, d,
+                       _make_faithful_bounce, rd=rd)
 
 
 # ---------------------------------------------------------------------------
@@ -522,21 +715,40 @@ def _scatter_back(L, outer):
     return L
 
 
-def _sampler_dims(cfg, sampler, n_stages):
-    """(dims before the per-stage thinning dims, all dims)."""
-    if not samplers.supports_inloop_dims(sampler):
-        raise NotImplementedError(
-            f"sampler kind {sampler.kind!r} is not ported yet")
-    n_dims = CAMERA_DIMS + DIMS_PER_BOUNCE * (cfg.max_depth + 1)
-    return n_dims, n_dims + n_stages
+class _Dims:
+    """The per-bounce sample dims of a wavefront.  Sobol' and random dims are
+    computed where they are used; Halton needs a static prime base per dim,
+    so its full (N, D) matrix is computed once and sliced."""
 
+    def __init__(self, cfg, sampler, pixel, sample, n_stages, U=None):
+        self.sampler, self.pixel, self.sample = sampler, pixel, sample
+        # dims before the per-stage thinning dims, and all dims
+        self.n_dims = CAMERA_DIMS + DIMS_PER_BOUNCE * (cfg.max_depth + 1)
+        self.n_dims_tot = self.n_dims + n_stages
+        self.cfg, self.n_stages = cfg, n_stages
+        self.U = U
+        if U is None and not samplers.supports_inloop_dims(sampler):
+            self.U = samplers.sample_all_dims(sampler, pixel, sample,
+                                              self.n_dims_tot)
 
-def _make_get_ub(sampler, pix, smp, n_dims_tot):
-    def get_ub(b):
-        base = CAMERA_DIMS + b * DIMS_PER_BOUNCE
+    def _dims(self, base, k):
+        if self.U is not None:
+            return self.U[:, base:base + k]
         return samplers.sample_bounce_dims(
-            sampler, pix, smp, base, DIMS_PER_BOUNCE, n_dims_tot)
-    return get_ub
+            self.sampler, self.pixel, self.sample, base, k, self.n_dims_tot)
+
+    def ub(self, b):
+        """(N, DIMS_PER_BOUNCE) dims of bounce b."""
+        return self._dims(CAMERA_DIMS + b * DIMS_PER_BOUNCE, DIMS_PER_BOUNCE)
+
+    def thin(self, si):
+        """(N,) pre-thinning dim of compaction stage si."""
+        return self._dims(self.n_dims + si, 1)[:, 0]
+
+    def take(self, src):
+        """The dims of the lanes src (a compacted wavefront)."""
+        return _Dims(self.cfg, self.sampler, self.pixel[src], self.sample[src],
+                     self.n_stages, None if self.U is None else self.U[src])
 
 
 def _peel0(cfg, rd):
@@ -560,38 +772,31 @@ def _trace_loop(scene, cfg: RenderCfg, sampler, pixel, sample, o, d,
     = useful scene casts: lanes actually tracing, not dispatch width)."""
     n = o.shape[0]
     stages = _compaction_stages(cfg, n) if cfg.compact_tail else ()
-    n_dims, n_dims_tot = _sampler_dims(cfg, sampler, len(stages))
+    dims = _Dims(cfg, sampler, pixel, sample, len(stages))
 
     state = _initial_state(cfg, o, d)
-    bounce = make_bounce(scene, cfg,
-                         _make_get_ub(sampler, pixel, sample, n_dims_tot), n)
+    bounce = make_bounce(scene, cfg, dims.ub, n)
     b_prev = 0
     if _peel0(cfg, rd):
-        bounce0 = make_bounce(
-            scene, cfg, _make_get_ub(sampler, pixel, sample, n_dims_tot), n,
-            rd=rd)
+        bounce0 = make_bounce(scene, cfg, dims.ub, n, rd=rd)
         state = bounce0(0, state)
         b_prev = 1
 
     # --- multi-stage compaction: run to each stage bounce, pre-thin
     # survivors into an n//frac buffer, continue; scatter the partial
     # radiances back at the end.
-    cur_pixel, cur_sample = pixel, sample
     outer = []  # (L_at_this_width, src, valid) per stage
     for si, (cb, frac) in enumerate(stages):
         for b in range(b_prev, cb):
             state = bounce(b, state)
         b_prev = max(b_prev, cb)
         m = n // frac
-        u_thin = samplers.sample_bounce_dims(
-            sampler, cur_pixel, cur_sample, n_dims + si, 1, n_dims_tot)[:, 0]
         L_wide = state["L"]
-        state, src, valid = _compact(cfg, state, state["alive"], m, u_thin)
+        state, src, valid = _compact(cfg, state, state["alive"], m,
+                                     dims.thin(si))
         outer.append((L_wide, src, valid))
-        cur_pixel, cur_sample = cur_pixel[src], cur_sample[src]
-        bounce = make_bounce(
-            scene, cfg, _make_get_ub(sampler, cur_pixel, cur_sample,
-                                     n_dims_tot), m)
+        dims = dims.take(src)
+        bounce = make_bounce(scene, cfg, dims.ub, m)
     for b in range(b_prev, cfg.max_depth + 1):
         state = bounce(b, state)
     L = _scatter_back(state["L"], outer)
@@ -633,16 +838,14 @@ def _trace_loop_pipelined(scene, cfg: RenderCfg, sampler, pixel, sample,
     if not stages:
         return _trace_loop(scene, cfg, sampler, pixel, sample, o, d,
                            _make_fast_bounce, rd=rd)
-    n_dims, n_dims_tot = _sampler_dims(cfg, sampler, len(stages))
+    dims = _Dims(cfg, sampler, pixel, sample, len(stages))
     peel0 = _peel0(cfg, rd)
-    cur_pixel, cur_sample, cur_rd = pixel, sample, rd
+    cur_rd = rd
     state = _initial_state(cfg, o, d)
 
     def make_parts(m, with_rd):
-        return _fast_parts(
-            scene, cfg, _make_get_ub(sampler, cur_pixel, cur_sample,
-                                     n_dims_tot), m,
-            rd=cur_rd if with_rd else None)
+        return _fast_parts(scene, cfg, dims.ub, m,
+                           rd=cur_rd if with_rd else None)
 
     def counted_cast(cast, state):
         if cfg.count_rays:
@@ -675,14 +878,12 @@ def _trace_loop_pipelined(scene, cfg: RenderCfg, sampler, pixel, sample,
         L_wide = state["L"] + emit(cb, state, hit)
         # ---- compact survivors (lanes that hit AND pass pre-thin RR) ------
         m = n // frac
-        u_thin = samplers.sample_bounce_dims(
-            sampler, cur_pixel, cur_sample, n_dims + si, 1, n_dims_tot)[:, 0]
         state, src, valid = _compact(cfg, state, state["alive"] & hit.hit, m,
-                                     u_thin)
+                                     dims.thin(si))
         outer.append((L_wide, src, valid))
         hit = trace.Hit(hit=hit.hit[src] & valid, t=hit.t[src],
                         kind=hit.kind[src], prim=hit.prim[src], b=hit.b[src])
-        cur_pixel, cur_sample = cur_pixel[src], cur_sample[src]
+        dims = dims.take(src)
         if cur_rd is not None:
             cur_rd = type(cur_rd)(*(x[src] for x in cur_rd))
         m_cur = m

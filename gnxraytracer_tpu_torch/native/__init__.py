@@ -1,4 +1,5 @@
-"""Native host library (C++ via ctypes): the SAH BVH builder.
+"""Native host library (C++ via ctypes): the SAH BVH builder and the Halton
+digit permutations.
 
 ``bvh_builder.cpp`` is compiled with g++ at first use into the package's
 build directory (the one the CUDA kernels go to; not under version control)
@@ -46,6 +47,8 @@ def get_lib():
         p, ctypes.c_int, p, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p,
         ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.gnx_build_bvh_sah.restype = ctypes.c_int
+    lib.gnx_halton_permutations.argtypes = [p, ctypes.c_int, p]
+    lib.gnx_halton_permutations.restype = None
     _lib = lib
     return lib
 
@@ -79,3 +82,16 @@ def build_bvh_sah(verts, tris, leaf_size):
     ol = order_len.value
     return (lo[:n_nodes].copy(), hi[:n_nodes].copy(), off[:n_nodes].copy(),
             npr[:n_nodes].copy(), ax[:n_nodes].copy(), order[:ol].copy())
+
+
+def halton_permutations(primes):
+    """Flat int32 table of the scrambled-radical-inverse digit permutations
+    of `primes`, one after the other (ops/lds.permutations_python is the
+    same shuffle in Python)."""
+    lib = get_lib()
+    primes = np.ascontiguousarray(primes, np.int32)
+    out = np.empty(int(primes.astype(np.int64).sum()), np.int32)
+    lib.gnx_halton_permutations(primes.ctypes.data_as(ctypes.c_void_p),
+                                len(primes),
+                                out.ctypes.data_as(ctypes.c_void_p))
+    return out

@@ -7,10 +7,10 @@ emitting the flattened depth-first layout (interior node n has children n+1
 and offset[n]; a leaf covers LEAF_SIZE-aligned rows of the reordered
 primitive list starting at offset[n]), threaded miss links, the eight
 per-octant near-first threadings, and the packed leaf triangles.  On top of
-it ``_finish_build`` makes the width-8 table the casts walk (ops/wbvh.py,
-kernels/wide_bvh.py).  ``first8`` / ``miss8`` / ``miss`` serve the binary
-threaded walks, which are not ported yet; they are kept so that a whole tree
-carries across from the JAX package.
+it ``bvh_from_numpy`` makes the two tables the casts walk: the width-8 table
+(ops/wbvh.py, kernels/wide_bvh.py) and the binary threaded table
+(``PacketPack``, kernels/packet_bvh.py), which holds the nodes' boxes, the
+``first8`` / ``miss8`` links of each direction octant and the packed leaf rows.
 
 Leaves hold up to LEAF_SIZE prims, so a leaf test is a fixed-size masked
 intersection.
@@ -25,6 +25,21 @@ import torch
 from ..utils.device import resolve_device
 
 LEAF_SIZE = 4
+
+
+class PacketPack(NamedTuple):
+    """The binary threaded (miss-link) tree as the tables a stackless walk
+    reads with one row index (kernels/packet_bvh.py), made once per tree."""
+    nodes: torch.Tensor  # (NN, 8) f32: lo.xyz hi.xyz pad pad
+    # (K, NN, 2) i32 links of direction octant k.  Column 0: a leaf's
+    # -(leaf_row + 1), or an inner node's first (nearer) child; node 0 is the
+    # root, so child ids are >= 1 and the sign tells the two apart.  Column 1:
+    # where the walk goes after a box miss or a finished subtree (-1 = done).
+    # K = 8 when the tree carries octant links, else 1 (the depth-first order:
+    # first child = node + 1, the fixed miss links).
+    meta: torch.Tensor
+    leafs: torch.Tensor  # (NL, LEAF_SIZE * 9) f32: one whole leaf per row
+    tid: torch.Tensor    # (NL, LEAF_SIZE) i32 triangle ids (-1 pads)
 
 
 class BVH(NamedTuple):
@@ -46,6 +61,8 @@ class BVH(NamedTuple):
     treelets: object = None
     # width-8 table of the whole tree (ops/wbvh.WidePack), built for every tree
     wide: object = None
+    # binary threaded table of the whole tree (PacketPack), built for every tree
+    packet: object = None
 
 
 # ---------------------------------------------------------------------------
@@ -145,10 +162,41 @@ def _align_leaves(off, npr, order, leaf_size=LEAF_SIZE):
     return new_off.astype(np.int32), new_order.astype(np.int32)
 
 
+def build_packet_pack(lo, hi, off, npr, order, soa, miss, first8=None,
+                      miss8=None, device="cuda"):
+    """PacketPack of a finished binary tree (host arrays): table for table
+    what the JAX package's pack_bvh_for_pallas makes per cast."""
+    dev = resolve_device(device)
+    off = np.asarray(off, np.int32)
+    npr = np.asarray(npr, np.int32)
+    nn = len(off)
+    nodes = np.zeros((nn, 8), np.float32)
+    nodes[:, 0:3] = lo
+    nodes[:, 3:6] = hi
+    leaf_code = -(off // LEAF_SIZE + 1)
+    if first8 is not None:
+        first = np.where((npr > 0)[None, :], leaf_code[None, :],
+                         np.asarray(first8, np.int32))
+        meta = np.stack([first, np.asarray(miss8, np.int32)], axis=-1)
+    else:
+        seq = np.arange(nn, dtype=np.int32) + 1
+        meta = np.stack([np.where(npr > 0, leaf_code, seq),
+                         np.asarray(miss, np.int32)], axis=1)[None]
+    leafs = np.asarray(soa, np.float32).reshape(-1, LEAF_SIZE * 9)
+    tid = np.asarray(order, np.int32).reshape(-1, LEAF_SIZE)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.array(a, dtype, order="C")).to(dev)
+
+    return PacketPack(put(nodes, np.float32), put(meta, np.int32),
+                      put(leafs, np.float32), put(tid, np.int32))
+
+
 def bvh_from_numpy(lo, hi, off, npr, ax, order, miss, soa, first8, miss8,
                    device="cuda"):
     """The BVH tables on a device, from finished host arrays, with the
-    width-8 table made from the binary ones (ops/wbvh.build_wide_pack)."""
+    width-8 table (ops/wbvh.build_wide_pack) and the binary threaded table
+    (build_packet_pack) made from them."""
     from .wbvh import build_wide_pack
 
     dev = resolve_device(device)
@@ -158,10 +206,12 @@ def bvh_from_numpy(lo, hi, off, npr, ax, order, miss, soa, first8, miss8,
 
     i32, f32 = np.int32, np.float32
     wide = build_wide_pack(off, npr, ax, lo, hi, order, soa, device=dev)
+    packet = build_packet_pack(lo, hi, off, npr, order, soa, miss, first8,
+                               miss8, device=dev)
     return BVH(put(lo, f32), put(hi, f32), put(off, i32), put(npr, i32),
                put(ax, i32), put(order, i32), put(miss, i32), put(soa, f32),
                None if first8 is None else put(first8, i32),
-               None if miss8 is None else put(miss8, i32), None, wide)
+               None if miss8 is None else put(miss8, i32), None, wide, packet)
 
 
 def _finish_build(arrs, vertices, triangles, orig_ids=None, device="cuda"):

@@ -4,8 +4,9 @@ types, plus surface-interaction construction.
 A hit record is SoA tensors carrying prim ids; the surface interaction
 gathers positions/normals/uv and builds the shading frame.  With
 cfg.use_bvh the triangle casts walk the scene's width-8 BVH table
-(kernels/wide_bvh.py); the per-lane stack walks and instancing of the JAX
-package are not ported yet and raise.
+(kernels/wide_bvh.py) or its binary threaded one (kernels/packet_bvh.py);
+the per-lane stack walks and instancing of the JAX package are not ported
+yet and raise.
 The JAX package fetches per-triangle attributes with a one-hot matmul (a
 TPU device); plain index gathers give the same values here.
 """
@@ -51,10 +52,13 @@ def _unported(cfg):
 
 
 def _bvh_casts(scene, cfg):
-    """(closest, any) cast functions over a WidePack for cfg.bvh_mode:
-    "pallas" is the hand-written kernel's wrapper (kernel on CUDA tensors,
-    plain version on CPU tensors), "packet" the plain walk on any device."""
-    from ..kernels import wide_bvh
+    """(closest, any) cast functions (o, d, t_max) -> result over the scene's
+    BVH for cfg.bvh_mode: "pallas" is the hand-written kernels' wrappers
+    (kernel on CUDA tensors, plain version on CPU tensors), "packet" the
+    plain walks on any device.  Which tree they walk follows the JAX
+    package's rule (kernels/packet_bvh._use_wide): the width-8 table, or with
+    GNX_WIDE_BVH=0 in the environment the binary threaded one."""
+    from ..kernels import packet_bvh, wide_bvh
 
     if scene.bvh is None:
         raise ValueError("cfg.use_bvh needs a scene built with bvh=True")
@@ -64,16 +68,25 @@ def _bvh_casts(scene, cfg):
         raise NotImplementedError(
             f"the per-lane BVH walk (bvh_mode={mode!r}) is not ported yet; "
             "use bvh_mode='pallas' or 'packet'")
-    key = cfg.sort_key
-    if mode == "pallas":
-        return (lambda p, o, d, t: wide_bvh.wide_closest_hit(p, o, d, t,
-                                                             sort_key=key),
-                lambda p, o, d, t: wide_bvh.wide_any_hit(p, o, d, t,
-                                                         sort_key=key))
+    if mode not in ("pallas", "packet"):
+        raise ValueError(f"unknown bvh_mode {mode!r}")
+    if packet_bvh._use_wide(scene.bvh):
+        pack, mod = scene.bvh.wide, wide_bvh
+        kernels = (mod.wide_closest_hit, mod.wide_any_hit)
+        plain = (mod.wide_closest_hit_reference, mod.wide_any_hit_reference)
+    else:
+        pack, mod = scene.bvh.packet, packet_bvh
+        kernels = (mod.packet_closest_hit, mod.packet_any_hit)
+        plain = (mod.packet_closest_hit_reference,
+                 mod.packet_any_hit_reference)
     if mode == "packet":
-        return (wide_bvh.wide_closest_hit_reference,
-                wide_bvh.wide_any_hit_reference)
-    raise ValueError(f"unknown bvh_mode {mode!r}")
+        closest, any_hit = plain
+        return (lambda o, d, t: closest(pack, o, d, t),
+                lambda o, d, t: any_hit(pack, o, d, t))
+    key = cfg.sort_key
+    closest, any_hit = kernels
+    return (lambda o, d, t: closest(pack, o, d, t, sort_key=key),
+            lambda o, d, t: any_hit(pack, o, d, t, sort_key=key))
 
 
 def _merge_tri_hit(th, prim_of, t_best, hit, kind, prim, bary):
@@ -109,7 +122,7 @@ def scene_intersect(scene, cfg, o, d, t_max):
                     scene.geom.triangles[big.long()])
                 state = _merge_tri_hit(bh, lambda i: big[i.long()], *state)
             closest, _ = _bvh_casts(scene, cfg)
-            th = closest(scene.bvh.wide, o.contiguous(), d.contiguous(),
+            th = closest(o.contiguous(), d.contiguous(),
                          state[0].contiguous())
         elif getattr(cfg, "use_pallas", False):
             from ..kernels.closest_hit import closest_hit, tri_soa_from_mesh
@@ -152,7 +165,7 @@ def scene_occluded(scene, cfg, o, d, t_max):
                     scene.geom.triangles[scene.big_tri_idx.long()])
                 t_walk = torch.where(occ, 0.0, t_walk)
             _, any_hit = _bvh_casts(scene, cfg)
-            occ = occ | any_hit(scene.bvh.wide, o.contiguous(), d.contiguous(),
+            occ = occ | any_hit(o.contiguous(), d.contiguous(),
                                 t_walk.contiguous())
         else:
             occ = occ | intersect.any_triangle_hit(

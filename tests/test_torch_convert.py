@@ -29,6 +29,13 @@ from gnxraytracer_tpu_torch.scene import loaders as T_load
 from gnxraytracer_tpu_torch.scene import presets as T_presets
 from gnxraytracer_tpu_torch.scene import scene as T_scene
 
+# One intra-op thread for eager PyTorch on the CPU.  Under pytest-xdist every
+# worker process imports this module at collection and would otherwise start
+# a thread pool as wide as the machine; several such pools on the same cores
+# spin at each operator's barrier, and a 64x64 render of a few seconds takes
+# minutes.  The tensors here are small: one thread costs next to nothing.
+torch.set_num_threads(1)
+
 
 def np_tree(tree):
     """Every array leaf of a JAX-package table as a numpy array."""
@@ -254,6 +261,41 @@ def test_sampler_from_numpy(kind):
     assert got == want
 
 
+@pytest.mark.parametrize("wh", [(16, 16), (100, 37)])
+def test_halton_sampler_from_numpy(wh):
+    """A Halton sampler crosses over with its per-film table and metadata;
+    every table equals the JAX package's and the port's own."""
+    js = J_smp.make_halton_sampler(8, *wh, seed=2)
+    got = convert.sampler_from_numpy(np_tree(js), device="cpu")
+    want = T_smp.make_halton_sampler(8, *wh, seed=2, device="cpu")
+    for f in T_smp.Sampler._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert torch.equal(a, b) if torch.is_tensor(a) else a == b, f
+    for f in ("pixel_offset", "primes", "prime_sums", "perms"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(js, f)), err_msg=f)
+    assert (got.stride, got.exp2, got.scale3) == (js.stride, js.exp2, js.scale3)
+    assert got.kind == "halton" and got.device == "cpu"
+
+
+@pytest.mark.parametrize("name", ["mesh", "cornell_mesh_bvh"])
+def test_carried_bvh_gets_the_packet_pack(name):
+    """A JAX BVH crosses over with the binary threaded table made from its
+    binary tables: equal to the port's own build, and to what the JAX
+    package packs per cast (pack_bvh_for_pallas)."""
+    from gnxraytracer_tpu.ops import pallas_bvh as J_pb
+
+    js, _, ts, _ = scene_pair(name)
+    got = convert.scene_from_numpy(np_tree(js), device="cpu").bvh
+    assert got.treelets is None and got.packet is not None
+    for a, b, c in zip(got.packet, ts.bvh.packet,
+                       J_pb.pack_bvh_for_pallas(js.bvh)):
+        assert torch.equal(a, b)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+    nn = int(js.bvh.offset.shape[0])
+    assert tuple(got.packet.meta.shape) == (8, nn, 2)
+
+
 def test_mesh_scene_carries_bvh_env_textures_and_big_prims():
     """What the mesh path adds to a scene crosses over: the BVH (binary
     tables as they are, the width-8 table made from them), the environment
@@ -291,6 +333,8 @@ def test_unported_state_is_refused():
     with pytest.raises(NotImplementedError):
         convert.bvh_from_numpy_tree(np_tree(js.bvh)._replace(first8=None),
                                     device="cpu")
-    with pytest.raises(NotImplementedError):
+    # the Halton sampler crosses over now; an unknown kind is refused
+    with pytest.raises(ValueError):
         convert.sampler_from_numpy(
-            np_tree(J_smp.make_halton_sampler(4, 8, 8)), device="cpu")
+            np_tree(J_smp.make_random_sampler(4))._replace(kind="stratified"),
+            device="cpu")

@@ -17,7 +17,9 @@ import torch
 import gnxraytracer_tpu_torch
 from gnxraytracer_tpu_torch import cli
 from gnxraytracer_tpu_torch.models import lights as T_lights
+from gnxraytracer_tpu_torch.models.integrators import direct as T_direct
 from gnxraytracer_tpu_torch.models.integrators import path as T_path
+from gnxraytracer_tpu_torch.models.integrators import whitted as T_whitted
 from gnxraytracer_tpu_torch.ops import bvh as T_bvh
 from gnxraytracer_tpu_torch.ops import samplers as T_smp
 from gnxraytracer_tpu_torch.ops import trace as T_trace
@@ -48,9 +50,11 @@ def port_sources():
 def test_every_module_is_found():
     mods = port_modules()
     for want in ("cli", "convert", "constants", "kernels.closest_hit",
-                 "kernels.build", "kernels.wide_bvh", "native", "ops.trace",
+                 "kernels.build", "kernels.wide_bvh", "kernels.packet_bvh",
+                 "native", "ops.trace", "ops.lds", "ops.samplers",
                  "ops.intersect", "ops.sobol", "ops.bvh", "ops.wbvh",
                  "ops.texture", "ops.sampling", "models.integrators.path",
+                 "models.integrators.whitted", "models.integrators.direct",
                  "models.lights", "models.microfacet", "models.disney",
                  "scene.presets", "scene.loaders", "utils.image"):
         assert f"gnxraytracer_tpu_torch.{want}" in mods
@@ -79,8 +83,12 @@ def test_fresh_interpreter_imports_no_jax():
         "assert 'torch' in sys.modules\n"
         "from gnxraytracer_tpu_torch import native\n"
         "from gnxraytracer_tpu_torch.kernels import build, closest_hit, wide_bvh\n"
+        "from gnxraytracer_tpu_torch.kernels import packet_bvh\n"
         "assert build._libs == {} and build.build_log == {}\n"
         "assert native._lib is None and wide_bvh._fns is None\n"
+        "assert packet_bvh._fns is None\n"
+        "for m in ('whitted', 'direct'):\n"
+        "    assert 'gnxraytracer_tpu_torch.models.integrators.' + m in sys.modules\n"
         "print('CLEAN', len(sys.modules))\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, cwd=ROOT)
@@ -117,7 +125,7 @@ def test_build_paths_hash_headers_and_stay_in_the_ignored_directory(
     from gnxraytracer_tpu_torch import native
     from gnxraytracer_tpu_torch.kernels import build
 
-    for name in ("wide_bvh", "closest_hit"):
+    for name in ("wide_bvh", "closest_hit", "packet_bvh"):
         files = [os.path.basename(f) for f in build.source_files(name)]
         assert files == sorted([name + ".cu", "watertight.cuh"])
     flags = " ".join(build.NVCC_FLAGS)
@@ -138,8 +146,9 @@ def test_build_paths_hash_headers_and_stay_in_the_ignored_directory(
         f.write("// edited\n")
     assert os.path.basename(build._target("wide_bvh")[1]) != \
         os.path.basename(before)
-    assert os.path.basename(build._target("closest_hit")[1]) != \
-        os.path.basename(build._target("wide_bvh")[1])
+    names = {os.path.basename(build._target(n)[1])
+             for n in ("closest_hit", "wide_bvh", "packet_bvh")}
+    assert len(names) == 3
 
 
 def test_kernel_sources_have_the_entry_points_the_wrappers_bind():
@@ -154,6 +163,14 @@ def test_kernel_sources_have_the_entry_points_the_wrappers_bind():
     assert "template <bool kAnyHit>" in src
     with open(os.path.join(build.CSRC_DIR, "closest_hit.cu")) as f:
         assert '#include "watertight.cuh"' in f.read()
+    with open(os.path.join(build.CSRC_DIR, "packet_bvh.cu")) as f:
+        src = f.read()
+    for entry in ("gnx_packet_closest_hit", "gnx_packet_any_hit"):
+        assert f'extern "C" int {entry}(' in src
+    assert '#include "watertight.cuh"' in src and "cudaGetLastError" in src
+    assert "template <bool kAnyHit>" in src and "__trap()" in src
+    # the stackless walk keeps no per-thread stack
+    assert "stack[" not in src
 
 
 # -- the device is explicit ---------------------------------------------------
@@ -177,6 +194,13 @@ ENTRY_POINTS = {
         8, 8, (0, 0, 5), (0, 0, 0), **kw),
     "make_sobol_sampler": lambda **kw: T_smp.make_sobol_sampler(4, **kw),
     "make_random_sampler": lambda **kw: T_smp.make_random_sampler(4, **kw),
+    "make_halton_sampler": lambda **kw: T_smp.make_halton_sampler(4, 8, 8, **kw),
+    "halton_sampler_from_tables": lambda **kw: T_smp.halton_sampler_from_tables(
+        4, 0, np.zeros(64, np.uint32), 6, 3, 9, **kw),
+    "build_packet_pack": lambda **kw: T_bvh.build_packet_pack(
+        np.zeros((1, 3)), np.ones((1, 3)), np.zeros(1, np.int32),
+        np.ones(1, np.int32), np.asarray([0, -1, -1, -1]), np.zeros((4, 9)),
+        np.asarray([-1]), **kw),
 }
 
 
@@ -205,6 +229,48 @@ def test_cli_needs_cuda_unless_cpu_flag(tmp_path, capsys):
             cli.main(args)
 
 
+@pytest.mark.parametrize("integrator", ["path", "whitted", "direct"])
+def test_cli_default_flags_run(integrator, tmp_path, capsys):
+    """No sampler or estimator flag: the JAX CLI's defaults (Halton, the
+    faithful estimator, depth 5) through each ported integrator; without
+    --cpu and without a card it stops with the device error."""
+    args = ["render", "--preset", "cornell", "--spp", "4", "--width", "32",
+            "--height", "32", "--integrator", integrator]
+    npy = tmp_path / "x.npy"
+    cli.main(args + ["--cpu", "--out-npy", str(npy)])
+    img = np.load(npy)
+    assert img.shape == (32, 32, 3) and np.isfinite(img).all()
+    assert 0.1 < img.mean() < 2.0
+    assert '"device": "cpu"' in capsys.readouterr().out
+    if _no_cuda():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            cli.main(args)
+
+
+def test_cli_integrators_are_the_modules():
+    assert cli.get_integrator("path") is T_path
+    assert cli.get_integrator("whitted") is T_whitted
+    assert cli.get_integrator("direct") is T_direct
+    with pytest.raises(SystemExit, match="not ported"):
+        cli.get_integrator("volpath")
+
+
+def test_cli_whitted_on_the_mesh_preset_takes_either_walk(tmp_path, monkeypatch):
+    """--preset cornell-mesh --integrator whitted with default flags, through
+    the wide walk and, with GNX_WIDE_BVH=0, the binary one: the same image
+    up to ties."""
+    args = ["render", "--preset", "cornell-mesh", "--integrator", "whitted",
+            "--spp", "1", "--spp-chunk", "1", "--width", "12", "--height",
+            "12", "--cpu"]
+    monkeypatch.delenv("GNX_WIDE_BVH", raising=False)
+    cli.main(args + ["--out-npy", str(tmp_path / "w.npy")])
+    monkeypatch.setenv("GNX_WIDE_BVH", "0")
+    cli.main(args + ["--out-npy", str(tmp_path / "b.npy")])
+    w, b = np.load(tmp_path / "w.npy"), np.load(tmp_path / "b.npy")
+    assert w.mean() > 0.05
+    np.testing.assert_allclose(b, w, rtol=1e-4, atol=1e-5)
+
+
 def test_cli_resume_from_checkpoint(tmp_path):
     ck = tmp_path / "ck.npz"
     base = ["render", "--preset", "sphere", "--sampler", "random", "--fast-mis",
@@ -218,13 +284,12 @@ def test_cli_resume_from_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--sampler", "sobol"], "--sampler sobol --fast-mis"),       # faithful
-    (["--fast-mis"], "--sampler sobol --fast-mis"),               # halton
+    (["--integrator", "volpath"], "volpath"),
+    (["--live", "x.png"], "--live"),
     (["--sampler", "sobol", "--fast-mis", "--preset", "volume"], "volume"),
     (["--sampler", "sobol", "--fast-mis", "--preset", "cornell-glass"],
      "cornell-glass"),
-    (["--sampler", "sobol", "--fast-mis", "--integrator", "whitted"],
-     "whitted"),
+    (["--integrator", "whitted", "--preset", "gridvol"], "gridvol"),
     (["--sampler", "sobol", "--fast-mis", "--view"], "--view"),
 ])
 def test_cli_names_what_is_not_ported(argv, names):
@@ -297,8 +362,8 @@ def _builder_calls():
         "add_homogeneous_medium": lambda: b().add_homogeneous_medium(1, 1),
         "add_grid_medium": lambda: b().add_grid_medium(np.zeros((2, 2, 2)), 1, 1),
         "add_instances": lambda: b().add_instances(),
-        "make_halton_sampler": lambda: T_smp.make_halton_sampler(
-            4, 8, 8, device="cpu"),
+        "estimate_direct(vis_fn)": lambda: T_path.estimate_direct(
+            None, None, None, None, None, None, None, vis_fn=print),
     }
 
 
@@ -339,6 +404,8 @@ def _ported_builder_calls():
         "cornell_box(bvh=True)": lambda: T_presets.cornell_box(
             8, 8, bvh=True, device="cpu")[0].bvh,
         "generate_ray_differentials": rd,
+        "make_halton_sampler": lambda: T_smp.make_halton_sampler(
+            4, 8, 8, device="cpu"),
     }
 
 
@@ -358,7 +425,7 @@ def _render(scene=None, cam=None, **kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fast_mis=False),
+    dict(fast_mis=False, light_strategy="spatial"),
     dict(fast_mis=True, light_strategy="spatial"),
     dict(fast_mis=True, use_bvh=True, bvh_mode="stack"),
     dict(fast_mis=True, use_bvh=True, bvh_stackless=False),
@@ -377,12 +444,14 @@ def test_unported_render_branch_raises(kw):
          compact_stages=((0, 1),)),
     dict(fast_mis=True, use_bvh=True),
     dict(fast_mis=True, use_bvh=True, bvh_mode="pallas"),
+    dict(fast_mis=False),
+    dict(fast_mis=False, use_bvh=True),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_ported_render_branch_runs(kw):
-    """Branches that were refused before the mesh path and render now; all
-    give the brute-force image's mean."""
+    """Branches that were refused in an earlier part of the port and render
+    now; all give the brute-force image's mean of the same estimator."""
     scene, cam = T_presets.cornell_box(16, 16, bvh=True, device="cpu")
-    want = _render(scene, cam, fast_mis=True, use_bvh=False)
+    want = _render(scene, cam, fast_mis=kw["fast_mis"], use_bvh=False)
     got = _render(scene, cam, **kw)
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy().mean(), want.numpy().mean(),
@@ -429,7 +498,11 @@ def test_unported_trace_branches_raise():
     for cast in (T_trace.scene_intersect, T_trace.scene_occluded):
         with pytest.raises(ValueError, match="bvh=True"):
             cast(scene, cfg._replace(use_bvh=True), o, d, t)
+    # the faithful estimator runs now; what it still refuses is the
+    # participating-media hook and the spatial light distribution
     with pytest.raises(NotImplementedError):
-        T_path.trace_paths(scene, cfg, None, None, None, o, d)
+        T_path.estimate_direct(scene, cfg, None, None, None, None, None,
+                               vis_fn=lambda o, d, t: None)
     with pytest.raises(NotImplementedError):
-        T_path.estimate_direct()
+        T_path._choose_light(scene, cfg._replace(light_strategy="spatial"),
+                             torch.zeros(4))

@@ -1,5 +1,7 @@
-"""The ported path as a whole: the port's fast-MIS path tracer against the JAX
-package on the CPU, and against the reference renderer's golden image.
+"""The ported path as a whole: the port's path tracer (the fast-MIS estimator
+and, further down, the faithful three-cast one with Halton and Sobol')
+against the JAX package on the CPU, and against the reference renderer's
+golden image.
 
 Both packages render the Cornell box (and a scene that mixes in every other
 ported primitive, material and light kind) with their own SceneBuilder (the
@@ -131,6 +133,94 @@ def test_prethin_and_stage_rules():
                                            (6, 64)))
     # kept: within max_depth, dividing n, >= 256 wide, strictly shrinking
     assert T_path._compaction_stages(cfg, 4096) == ((2, 2), (5, 8))
+
+
+# -- the faithful estimator (fast_mis=False) ----------------------------------------
+
+# name -> (scene, width, sampler, config).  Tolerance as in
+# tests/test_torch_whitted_direct.py: per pixel rtol 1e-4 + atol 1e-5, at most
+# 0.5% of the pixels on the other side of a discrete decision (none on this
+# build), ray counts within 0.5%.
+FAITHFUL = {
+    "cornell_halton": ("cornell", 24, "halton", dict(spp=3, max_depth=3)),
+    "cornell_sobol": ("cornell", 24, "sobol", dict(spp=3, max_depth=3)),
+    # spheres, mirror, glass with its etaScale, point/spot/distant lights, a
+    # thin lens, the power light strategy, Russian roulette past bounce 3
+    "mixed_sobol_power": ("mixed", 24, "sobol", dict(
+        spp=3, max_depth=6, light_strategy="power")),
+    # 4096 lanes // 8 = 512 >= 256: the compaction engages, and the Halton
+    # sample matrix is carried through it row for row
+    "compact_halton": ("cornell", 32, "halton", dict(
+        spp=4, max_depth=5, compact_tail=True, compact_from=2, compact_frac=8)),
+    # the binary threaded walk against the JAX XLA packet walk
+    "mesh_bvh_halton": ("cornell_mesh_bvh", 24, "halton",
+                        dict(spp=3, max_depth=3)),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(FAITHFUL))
+def faithful(request):
+    from test_torch_whitted_direct import render_both
+
+    scene, w, sampler, kw = FAITHFUL[request.param]
+    kw = dict(kw, fast_mis=False, count_rays=True)
+    spp = kw.pop("spp")
+    out = render_both(scene, "path", sampler, w, spp, **kw)
+    out["name"] = request.param
+    return out
+
+
+def test_faithful_render_chunk_matches_jax(faithful):
+    from test_torch_whitted_direct import assert_images_match
+
+    (jimg, jn), (timg, tn) = faithful["jax_out"], faithful["torch_out"]
+    assert timg.shape == (faithful["w"] ** 2, 3)
+    assert_images_match(timg, jimg, faithful["name"])
+    # more than the camera casts alone, and the same count
+    assert jn > faithful["w"] ** 2 * faithful["spp"]
+    assert abs(tn / jn - 1.0) < 0.005
+
+
+def test_faithful_differs_from_fast_mis_only_by_noise(faithful):
+    """Same scene, same samples, the other estimator: another image (three
+    casts against two), the same expectation."""
+    cfg = faithful["cfg"]._replace(fast_mis=True)
+    import os
+
+    os.environ["GNX_WIDE_BVH"] = "0"
+    try:
+        img, n = T_path.render_chunk(faithful["scene"], faithful["cam"],
+                                     faithful["sampler"], cfg, 0,
+                                     faithful["spp"])
+    finally:
+        del os.environ["GNX_WIDE_BVH"]
+    timg, tn = faithful["torch_out"]
+    assert float(n) < tn  # fewer casts a path
+    assert not np.allclose(img.numpy(), timg)
+    assert abs(img.numpy().mean() / timg.mean() - 1.0) < 0.15
+
+
+def test_halton_sample_matrix_is_what_the_loop_reads():
+    """_Dims of a Halton sampler slices the precomputed (N, D) matrix; of a
+    Sobol' sampler it computes the same dims in place; take() follows a
+    compaction's source map."""
+    import torch
+
+    pix = torch.arange(64, dtype=torch.int32)
+    smp = torch.zeros(64, dtype=torch.int32) + 2
+    cfg = T_path.RenderCfg(8, 8, 4, max_depth=2)
+    src = torch.tensor([5, 9, 63, 0])
+    for make in (lambda: T_smp.make_halton_sampler(4, 8, 8, device="cpu"),
+                 lambda: T_smp.make_sobol_sampler(4, device="cpu")):
+        s = make()
+        dims = T_path._Dims(cfg, s, pix, smp, 2)
+        n_tot = 5 + 8 * 3 + 2
+        assert (dims.n_dims, dims.n_dims_tot) == (n_tot - 2, n_tot)
+        U = T_smp.sample_all_dims(s, pix, smp, n_tot)
+        assert (dims.U is None) == T_smp.supports_inloop_dims(s)
+        assert torch.equal(dims.ub(1), U[:, 13:21])
+        assert torch.equal(dims.thin(1), U[:, n_tot - 1])
+        assert torch.equal(dims.take(src).ub(2), U[src, 21:29])
 
 
 def block_mean(img, b=8):

@@ -1,5 +1,5 @@
-"""The PyTorch port's counter-based RNG and Sobol' sampler against the JAX
-package: bit-equal.  The port holds 32-bit words in int64 tensors (PyTorch
+"""The PyTorch port's counter-based RNG, Sobol' sampler and Halton sampler
+against the JAX package: bit-equal.  The port holds 32-bit words in int64 tensors (PyTorch
 has no uint32 arithmetic), so every hash, shift and float conversion is
 checked for exact equality, not closeness."""
 
@@ -178,5 +178,119 @@ def test_camera_sample(kind, pixel_filter):
 
 
 def test_halton_raises():
-    with pytest.raises(NotImplementedError):
-        T_smp.make_halton_sampler(4, 8, 8, device="cpu")
+    """A Halton sampler is made now; what it still refuses, as in the JAX
+    package, is dims computed inside the bounce loop (it needs a static prime
+    base per dim, so integrators precompute its matrix)."""
+    ts = T_smp.make_halton_sampler(4, 8, 8, device="cpu")
+    assert ts.kind == "halton" and not T_smp.supports_inloop_dims(ts)
+    z = torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="in-loop dims"):
+        T_smp.sample_bounce_dims(ts, z, z, 5, 8, 13)
+
+
+# -- the Halton sampler -----------------------------------------------------------
+
+HALTON_FILMS = [(50, 40), (500, 500), (100, 37)]
+
+
+def _halton(w, h, spp=8):
+    return (T_smp.make_halton_sampler(spp, w, h, device="cpu"),
+            J_smp.make_halton_sampler(spp, w, h))
+
+
+def _film_lanes(w, h, n=3000, spp=8, seed=11):
+    rs = np.random.RandomState(seed)
+    return (rs.randint(0, w * h, n).astype(np.int32),
+            rs.randint(0, spp, n).astype(np.int32))
+
+
+@pytest.mark.parametrize("wh", HALTON_FILMS)
+def test_halton_sampler_tables_equal(wh):
+    ts, js = _halton(*wh)
+    for f in ("pixel_offset", "primes", "prime_sums", "perms"):
+        a, b = getattr(ts, f).numpy(), np.asarray(getattr(js, f))
+        np.testing.assert_array_equal(a, b, err_msg=f)
+        assert a.shape == b.shape
+    assert ts.primes.dtype == ts.prime_sums.dtype == ts.perms.dtype == torch.int32
+    assert (ts.kind, ts.spp, ts.seed, ts.stride, ts.exp2, ts.scale3) == \
+        (js.kind, js.spp, js.seed, js.stride, js.exp2, js.scale3)
+
+
+@pytest.mark.parametrize("wh", HALTON_FILMS)
+def test_halton_global_index_bit_equal(wh):
+    ts, js = _halton(*wh)
+    pix, smp = _film_lanes(*wh)
+    smp[:8] = [0, 1, 2 ** 20, 2 ** 24, 7, 4095, 2 ** 22 + 5, 3]  # wraps at 2^32
+    _same_bits(T_smp.global_index(ts, torch.from_numpy(pix), torch.from_numpy(smp)),
+               J_smp.global_index(js, jnp.asarray(pix), jnp.asarray(smp)))
+
+
+@pytest.mark.parametrize("wh", HALTON_FILMS)
+def test_halton_sample_all_dims_bit_equal(wh):
+    """40 dims: camera, and four bounces of the path integrator's layout."""
+    ts, js = _halton(*wh)
+    pix, smp = _film_lanes(*wh)
+    a = T_smp.sample_all_dims(ts, torch.from_numpy(pix), torch.from_numpy(smp), 40)
+    _same_float_bits(a, J_smp.sample_all_dims(js, jnp.asarray(pix),
+                                              jnp.asarray(smp), 40))
+    assert tuple(a.shape) == (len(pix), 40)
+    assert float(a.min()) >= 0.0 and float(a.max()) < 1.0
+
+
+def test_halton_static_dim_fn_bit_equal():
+    ts, js = _halton(50, 40)
+    pix, smp = _film_lanes(50, 40)
+    tcol = T_smp.static_dim_fn(ts, torch.from_numpy(pix), torch.from_numpy(smp))
+    jcol = J_smp.static_dim_fn(js, jnp.asarray(pix), jnp.asarray(smp))
+    all_dims = T_smp.sample_all_dims(ts, torch.from_numpy(pix),
+                                     torch.from_numpy(smp), 40)
+    for d in range(40):
+        _same_float_bits(tcol(d), jcol(d))
+        assert torch.equal(tcol(d), all_dims[:, d])
+
+
+@pytest.mark.parametrize("dim", [0, 1, 2, 7, 39, 999, 1500])
+def test_halton_sample_dim_generic_path_bit_equal(dim):
+    """sample_dim's table-driven path (bases and permutations gathered from
+    the device tables); dims past the table clip to the last prime."""
+    ts, js = _halton(50, 40)
+    pix, smp = _film_lanes(50, 40, n=1000)
+    a = T_smp.sample_dim(ts, torch.from_numpy(pix), torch.from_numpy(smp), dim)
+    _same_float_bits(a, J_smp.sample_dim(js, jnp.asarray(pix),
+                                         jnp.asarray(smp), dim))
+    if dim < 40:  # the static path gives the same column
+        col = T_smp.static_dim_fn(ts, torch.from_numpy(pix),
+                                  torch.from_numpy(smp))
+        assert torch.equal(a, col(dim))
+
+
+@pytest.mark.parametrize("sampler", ["sobol", "random"])
+def test_static_dim_fn_of_inloop_samplers(sampler):
+    ts, js = _samplers(sampler)
+    pix, smp = _lanes(16, 16, 2)
+    tcol = T_smp.static_dim_fn(ts, torch.from_numpy(pix), torch.from_numpy(smp))
+    jcol = J_smp.static_dim_fn(js, jnp.asarray(pix), jnp.asarray(smp))
+    for d in (0, 4, 23):
+        _same_float_bits(tcol(d), jcol(d))
+
+
+@pytest.mark.parametrize("pixel_filter", ["box", "gaussian"])
+def test_halton_camera_sample(pixel_filter):
+    ts, js = _halton(50, 40)
+    pix, smp = _lanes()
+    a = T_smp.camera_sample(ts, torch.from_numpy(pix), torch.from_numpy(smp),
+                            50, pixel_filter)
+    b = J_smp.camera_sample(js, jnp.asarray(pix), jnp.asarray(smp), 50,
+                            pixel_filter)
+    for x, y in zip(a, b):
+        if pixel_filter == "box":
+            _same_float_bits(x, y)
+        else:  # erfinv: see test_camera_sample
+            err = np.abs(x.numpy() - np.asarray(y))
+            assert np.mean(err <= 1e-5 + 1e-5 * np.abs(np.asarray(y))) >= 0.999
+            assert err.max() < 1e-3
+    # dims 0-1 of the Halton sampler place the sample in its own pixel
+    px = a[0].numpy()
+    if pixel_filter == "box":
+        assert (np.floor(px[:, 0]) == pix % 50).all()
+        assert (np.floor(px[:, 1]) == pix // 50).all()
