@@ -12,14 +12,18 @@ the CPU or to a plain version:
 
   1. device   CUDA present; name and power limit from nvidia-smi
   2. build    nvcc builds csrc/*.cu (all sources started together) and g++
-              the native BVH builder into the package's build directory
+              the native BVH builder into the package's build directory;
+              each entry's registers, stack frame and spills from ptxas
   3. kernels  each kernel's wrapper against its plain PyTorch version on the
               card, at the shapes its main path gives it, plus ragged counts,
               dead lanes, t_max cut short and the shared-edge ray set; its
-              time, the plain version's time and the card's bound for the
-              same work (3a brute force, 3b the width-8 BVH walks, 3c the
-              binary threaded BVH walks on the same rays, with a tree without
-              octant links and the two-phase cast)
+              time (kernel ms: torch.profiler device time; wrapper ms: CUDA
+              events around the call), the plain version's time and the
+              card's bound for the same work (3a brute force, 3b the width-8
+              BVH walks on the mesh path's camera, bounce and shadow rays
+              and on 1M rays that enter the blob's tree, closest and any
+              hit, 3c the binary threaded BVH walks on the same rays, with a
+              tree without octant links and the two-phase cast)
   4. cornell  path.render of the Cornell box at 500x500, depth 8, Sobol',
               spp_chunk=4 (1M lanes a chunk), fast_mis + compact_tail +
               use_pallas, 8 spp, and the CLI's render command
@@ -27,7 +31,7 @@ the CPU or to a plain version:
               Disney, EWA-textured floor, HDR environment light from a
               procedural .hdr file) at 500x500, depth 8, 1M lanes a chunk,
               pipeline_casts with the bench's four compaction stages, 8 spp;
-              the same chunk with the coherence sort off; the CLI's
+              the same chunk with the coherence sort on; the CLI's
               ``--preset envmap``; a 64x64 render with the kernels against
               the same render with the plain walk
   6. golden   64x64, 64 spp Cornell on the card against the reference
@@ -56,9 +60,11 @@ line before the last is the {"kernels": [...]} record, the last line is
 
 import contextlib
 import functools
+import inspect
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -94,7 +100,7 @@ SPP_CHUNK = 4
 SPP = 8
 MESH_STAGES = ((0, 2), (1, 16), (2, 32), (4, 64))
 PLAIN_SUBSAMPLE = 100_000  # rays the plain walk takes of a 1M-ray set
-SORT_ROUNDS = 1  # rounds of (on, off, off, on) chunks in phase 5
+SORT_ROUNDS = 1  # rounds of (off, on, on, off) chunks in phase 5
 
 T_RTOL = 1e-5   # t: kernel vs plain version
 B_ATOL = 1e-5   # barycentrics: kernel vs plain version
@@ -140,6 +146,66 @@ def time_cuda(fn, reps, flush=None):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+# the names of the hand-written kernels in torch.profiler's CUDA events
+KERNEL_NAMES = ("closest_hit_kernel", "wide_triage_kernel", "wide_bvh_kernel",
+                "packet_bvh_kernel")
+
+
+def device_ms(fn, reps, flush=None, names=KERNEL_NAMES):
+    """Device milliseconds of the hand-written kernels one call of fn()
+    launches (each of them once a call), from torch.profiler's CUDA kernel
+    events over reps calls (`flush` overwritten before each, as in
+    time_cuda); None when the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and any(k in e.key for k in names) and e.count > 0]
+    # each kernel's mean over the launches the profiler kept (it may drop
+    # some), summed over the kernels a call launches
+    return sum(t / c for t, c in rows) / 1e3 if rows else None
+
+
+def ptxas_summary(log):
+    """Registers, stack frame and spill bytes of each entry function in an
+    `nvcc -Xptxas -v` log: {kernel: {...}}, the kernel named by its
+    mangled name's base and, for a template, <false> or <true>."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d+([a-z][a-z0-9_]*_kernel)", mangled)
+            name = base.group(1) if base else mangled
+            if "ILb0E" in mangled:
+                name += "<false>"
+            elif "ILb1E" in mangled:
+                name += "<true>"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack_frame_bytes=int(m.group(1)),
+                             spill_store_bytes=int(m.group(2)),
+                             spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def bound(bytes_moved, ops):
@@ -296,12 +362,13 @@ def phase_kernels(dev):
     # every lane alive, cold L2
     t_all = torch.full((n,), INFINITY, dtype=torch.float32, device=dev)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    ms = time_cuda(lambda: ch.closest_hit(o, d, t_all, soa), 30, flush)
+    wrapper_ms = time_cuda(lambda: ch.closest_hit(o, d, t_all, soa), 30, flush)
+    ms = device_ms(lambda: ch.closest_hit(o, d, t_all, soa), 30, flush)
     plain_ms = time_cuda(lambda: ch.closest_hit_reference(o, d, t_all, soa),
                          3, flush)
     # the tail of the bounce loop casts at 1/8 width
     m = n // 8
-    ms_tail = time_cuda(lambda: ch.closest_hit(o[:m], d[:m], t_all[:m], soa),
+    ms_tail = device_ms(lambda: ch.closest_hit(o[:m], d[:m], t_all[:m], soa),
                         30, flush)
     n_active = int((t_all > 0).sum())
     bound_ms, bound_by, bytes_ms, ops_ms = bound(
@@ -311,10 +378,13 @@ def phase_kernels(dev):
         source="gnxraytracer_tpu_torch/csrc/closest_hit.cu",
         replaces="gnxraytracer_tpu/ops/pallas_intersect.py:33",
         launches=None, max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        ms=ms if ms is not None else wrapper_ms,
+        ms_source="torch.profiler device time" if ms is not None
+        else "CUDA events around the wrapper",
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,  # no single PyTorch call computes this function
         shape={"n_rays": n, "n_tris": n_tri}, bytes_ms=bytes_ms, ops_ms=ops_ms,
-        ms_tail_125k_rays=ms_tail)
+        wrapper_ms_no_sort=wrapper_ms, ms_tail_125k_rays=ms_tail)
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +444,9 @@ def mesh_rays(dev, scene, cam, cfg):
     """The three kinds of 1M-ray sets the mesh main path casts: camera rays
     (4 spp), the cosine-fanned bounce rays that leave the surfaces they hit
     (lanes whose camera ray escaped are dead, t_max = 0), and the shadow
-    rays toward environment-light samples from the same hit points."""
+    rays toward environment-light samples from the same hit points; and 1M
+    rays that enter the blob's tree (entering_rays), cast closest-hit
+    ("entering") and any-hit ("entering_any")."""
     from gnxraytracer_tpu_torch.constants import INFINITY
     from gnxraytracer_tpu_torch.models import bxdf, lights
     from gnxraytracer_tpu_torch.ops import samplers, trace
@@ -401,15 +473,90 @@ def mesh_rays(dev, scene, cam, cfg):
     ls = lights.sample_li(scene, cfg, idx, it.p, ub[:, 1:3])
     so, sd, st = trace.shadow_ray(it, ls.target, ls.is_infinite)
     st = torch.where(hit.hit & (ls.pdf > 0), st, 0.0).to(torch.float32)
+    enter = entering_rays(dev, scene.bvh.wide, n)
     return dict(camera=(o.contiguous(), d.contiguous(), t_inf),
                 bounce=(o2, d2, t2.contiguous()),
-                shadow=(so.contiguous(), sd.contiguous(), st.contiguous()))
+                shadow=(so.contiguous(), sd.contiguous(), st.contiguous()),
+                entering=enter, entering_any=enter)
+
+
+def entering_rays(dev, pack, n, seed=0):
+    """n rays that enter the width-8 tree: origins uniform in 1.6x its box
+    (the pack's frame), directions uniform on the sphere, t_max = 1e30;
+    made on the device from `seed`."""
+    lo = pack.frame[0:3]
+    hi = lo + 255.0 * pack.frame[3:6]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    o = lo + (hi - lo) * (torch.rand((n, 3), generator=gen, device=dev) * 1.6 - 0.3)
+    d = torch.randn((n, 3), generator=gen, device=dev)
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    return (o.contiguous(), d.contiguous(),
+            torch.full((n,), 1e30, dtype=torch.float32, device=dev))
+
+
+# the ray sets of mesh_rays that go through the any-hit kernels
+ANY_HIT_SETS = ("shadow", "entering_any")
 
 
 def compare_wide_hits(name, got, ref, t_max, need_hits=True):
     """compare_hits with the BVH wrappers' miss record, b = (1, 0, 0)."""
     return compare_hits(name, got, ref, t_max, miss_b=(1.0, 0.0, 0.0),
                         need_hits=need_hits)
+
+
+def cast_bound(n, name, table_bytes, visits, node_ops):
+    """bound() of a BVH cast of n rays of the set `name`: bytes, every ray
+    in (28), every result out (21, or 1 for any hit), the tree's tables
+    once; operations, node_ops a visited node and 4 triangle tests a leaf
+    row, counted from this run's visits."""
+    out_bytes = 1 if name in ANY_HIT_SETS else 21
+    return bound(n * (28 + out_bytes) + table_bytes,
+                 visits["node_visits"] * node_ops
+                 + visits["leaf_visits"] * 4 * OPS_PER_PAIR)
+
+
+def sorts_by_default(wrapper):
+    return inspect.signature(wrapper).parameters["sort"].default
+
+
+def cast_times(fn, pack, o, d, t, lo, hi, key, flush, reps=10):
+    """Times of one BVH cast wrapper fn on 1M rays, L2 flushed before each
+    launch: the kernel's device time (torch.profiler) on the rays as they
+    come and on the same rays in coherence order (ops/bvh.ray_sort_perm over
+    the tree's box (lo, hi)); CUDA events around the wrapper with sort=False
+    on both; and around the wrapper with its coherence sort."""
+    from gnxraytracer_tpu_torch.ops import bvh as bvh_mod
+
+    perm, _ = bvh_mod.ray_sort_perm(o, d, lo, hi, t_max=t, key_mode=key)
+    so, sd, st = o[perm].contiguous(), d[perm].contiguous(), t[perm].contiguous()
+    return dict(
+        kernel_ms_unsorted=device_ms(lambda: fn(pack, o, d, t, sort=False),
+                                     reps, flush),
+        kernel_ms_sorted=device_ms(lambda: fn(pack, so, sd, st, sort=False),
+                                   reps, flush),
+        wrapper_ms_unsorted=time_cuda(lambda: fn(pack, o, d, t, sort=False),
+                                      reps, flush),
+        wrapper_ms_sorted=time_cuda(lambda: fn(pack, so, sd, st, sort=False),
+                                    reps, flush),
+        wrapper_ms_with_sort=time_cuda(
+            lambda: fn(pack, o, d, t, sort=True, sort_key=key), reps, flush),
+        alive_fraction=float((t > 0).float().mean()))
+
+
+def main_path_ms(times, wrapper):
+    """The `ms` of a kernel's record: its device time on the rays as its
+    wrapper launches them by default (in coherence order or as they come),
+    and beside it the wrapper's event time without the sort."""
+    sorts = sorts_by_default(wrapper)
+    key = "sorted" if sorts else "unsorted"
+    ms, source = times[f"kernel_ms_{key}"], "torch.profiler device time"
+    if ms is None:  # the profiler saw no kernel: events around the wrapper
+        ms, source = times[f"wrapper_ms_{key}"], "CUDA events around the wrapper"
+    return dict(ms=ms, ms_source=source, ms_rays="sorted" if sorts else "as they come",
+                wrapper_ms_no_sort=times[f"wrapper_ms_{key}"],
+                kernel_ms_unsorted=times["kernel_ms_unsorted"],
+                kernel_ms_sorted=times["kernel_ms_sorted"],
+                wrapper_ms_with_sort=times["wrapper_ms_with_sort"])
 
 
 def phase_wide_kernels(dev, scene, cfg, rays):
@@ -436,7 +583,7 @@ def phase_wide_kernels(dev, scene, cfg, rays):
         # two must agree with each other everywhere, and with the plain walk
         # on the sub-sample
         so, sd, st = o[sub].contiguous(), d[sub].contiguous(), t[sub].contiguous()
-        if name != "shadow":
+        if name not in ANY_HIT_SETS:
             got = wb.wide_closest_hit(pack, o, d, t, sort=False)
             got_s = wb.wide_closest_hit(pack, o, d, t, sort=True,
                                         sort_key=cfg.sort_key)
@@ -460,21 +607,22 @@ def phase_wide_kernels(dev, scene, cfg, rays):
             got_s = wb.wide_any_hit(pack, o, d, t, sort=True,
                                     sort_key=cfg.sort_key)
             torch.cuda.synchronize()
-            check(torch.equal(got, got_s), "shadow: occ depends on the sort")
+            check(torch.equal(got, got_s), f"{name}: occ depends on the sort")
             stats = {}
             t0 = time.time()
             ref = wb.wide_any_hit_reference(pack, so, sd, st, stats=stats)
             torch.cuda.synchronize()
             plain_ms[name] = (time.time() - t0) * 1e3
             check(torch.equal(got[sub], ref),
-                  f"shadow: occ differs on {int((got[sub] != ref).sum())} lanes")
-            check(not bool(got[t <= 0].any()), "shadow: a dead lane is occluded")
-            check(int(ref.sum()) > 0, "shadow: no ray is occluded")
+                  f"{name}: occ differs on {int((got[sub] != ref).sum())} lanes")
+            check(not bool(got[t <= 0].any()), f"{name}: a dead lane is occluded")
+            check(int(ref.sum()) > 0, f"{name}: no ray is occluded")
             cases.append(dict(kernel="wide_any_hit", case=name, n_rays=n,
                               plain_on=f"a sub-sample of {len(sub)} rays",
                               max_abs_err=0.0,
                               occluded_fraction=float(got.float().mean())))
-        visits[name] = {k: v * (n / len(sub)) for k, v in stats.items()}
+        visits[name] = {k: v if k == "max_stack" else v * (n / len(sub))
+                        for k, v in stats.items()}
 
     # a ragged count, dead lanes and t_max cut short, all rays through both
     # (every 9th lane: the first rows of the image see only sky)
@@ -521,67 +669,46 @@ def phase_wide_kernels(dev, scene, cfg, rays):
         "leaf_rows": int(pack.leafs.shape[0]), "stack_size": pack.stack_size},
         "cases": cases})
 
-    # isolated-cast times (L2 flushed before each launch): the kernel alone
-    # on the rays as they come, the kernel alone on the same rays in
-    # coherence order (what the main path launches), and the whole wrapper
-    # (sort, gathers, kernel, scatter back)
+    # isolated-cast times (L2 flushed before each launch), see cast_times
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    lo, hi = pack.frame[0:3], pack.frame[0:3] + 255.0 * pack.frame[3:6]
     times = {}
     for name, (o, d, t) in rays.items():
-        fn = wb.wide_any_hit if name == "shadow" else wb.wide_closest_hit
-        perm, _ = bvh_mod.ray_sort_perm(
-            o, d, pack.frame[0:3], pack.frame[0:3] + 255.0 * pack.frame[3:6],
-            t_max=t, key_mode=cfg.sort_key)
-        os_, ds_, ts_ = o[perm].contiguous(), d[perm].contiguous(), t[perm].contiguous()
-        times[name] = dict(
-            unsorted_ms=time_cuda(lambda: fn(pack, o, d, t, sort=False), 10, flush),
-            sorted_ms=time_cuda(lambda: fn(pack, os_, ds_, ts_, sort=False), 10, flush),
-            wrapper_ms=time_cuda(
-                lambda: fn(pack, o, d, t, sort=True, sort_key=cfg.sort_key),
-                10, flush),
-            alive_fraction=float((t > 0).float().mean()))
+        fn = wb.wide_any_hit if name in ANY_HIT_SETS else wb.wide_closest_hit
+        times[name] = cast_times(fn, pack, o, d, t, lo, hi, cfg.sort_key, flush)
+        times[name]["bound_ms"] = cast_bound(
+            n, name, table_bytes, visits[name], 8 * OPS_PER_SLAB)[0]
     emit({"phase": "wide_kernel_times", "n_rays": n, "times": times,
+          "wrappers_sort_by_default": sorts_by_default(wb.wide_closest_hit),
           "plain_ms_on_subsample": plain_ms, "subsample": len(sub),
           "visits_scaled_to_n_rays": visits})
 
-    def record(name, entry, out_bytes, case):
+    def record(name, entry, case):
         v = visits[case]
-        # bytes: every ray in, every result out, the tree's tables once
-        bound_ms, bound_by, bytes_ms, ops_ms = bound(
-            n * (28 + out_bytes) + table_bytes,
-            v["node_visits"] * 8 * OPS_PER_SLAB
-            + v["leaf_visits"] * 4 * OPS_PER_PAIR)
+        bound_ms, bound_by, bytes_ms, ops_ms = cast_bound(
+            n, case, table_bytes, v, 8 * OPS_PER_SLAB)
         errs = [c["max_abs_err"] for c in cases if c["kernel"] == name]
         return dict(
             name=name, route="cuda",
             source="gnxraytracer_tpu_torch/csrc/wide_bvh.cu",
             replaces="gnxraytracer_tpu/ops/pallas_wbvh.py:445",
             launches=None, max_abs_err=max(errs),
-            ms=times[case]["sorted_ms"], plain_ms=plain_ms[case],
+            plain_ms=plain_ms[case],
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             shape={"n_rays": n, "rays": case, "entry": entry,
                    "plain_n_rays": len(sub)},
             bytes_ms=bytes_ms, ops_ms=ops_ms, table_bytes=table_bytes,
-            ms_unsorted=times[case]["unsorted_ms"],
-            ms_wrapper_with_sort=times[case]["wrapper_ms"],
+            **main_path_ms(times[case], wb.wide_closest_hit),
             node_visits=v["node_visits"], leaf_visits=v["leaf_visits"])
 
-    return (wb, record("wide_closest_hit", "gnx_wide_closest_hit", 21, "bounce"),
-            record("wide_any_hit", "gnx_wide_any_hit", 1, "shadow"), times,
+    return (wb, record("wide_closest_hit", "gnx_wide_closest_hit", "bounce"),
+            record("wide_any_hit", "gnx_wide_any_hit", "shadow"), times,
             visits)
 
 
 # ---------------------------------------------------------------------------
 # phase 3c: the binary threaded-BVH kernels against their plain versions
 # ---------------------------------------------------------------------------
-
-def sorted_rays(o, d, t, lo, hi, key):
-    """The rays in the coherence order their wrapper would launch them in."""
-    from gnxraytracer_tpu_torch.ops import bvh as bvh_mod
-
-    perm, _ = bvh_mod.ray_sort_perm(o, d, lo, hi, t_max=t, key_mode=key)
-    return o[perm].contiguous(), d[perm].contiguous(), t[perm].contiguous()
-
 
 def phase_packet_kernels(dev, scene, cfg, rays, wide_times, wide_visits):
     """Kernels 4 and 5 on the full-width tree, on the rays of phase 3b: each
@@ -604,7 +731,7 @@ def phase_packet_kernels(dev, scene, cfg, rays, wide_times, wide_visits):
     for name, (o, d, t) in rays.items():
         so, sd, st = o[sub].contiguous(), d[sub].contiguous(), t[sub].contiguous()
         stats = {}
-        if name != "shadow":
+        if name not in ANY_HIT_SETS:
             got = pk.packet_closest_hit(pack, o, d, t, sort=False)
             got_s = pk.packet_closest_hit(pack, o, d, t, sort=True,
                                           sort_key=cfg.sort_key)
@@ -627,16 +754,16 @@ def phase_packet_kernels(dev, scene, cfg, rays, wide_times, wide_visits):
             got_s = pk.packet_any_hit(pack, o, d, t, sort=True,
                                       sort_key=cfg.sort_key)
             torch.cuda.synchronize()
-            check(torch.equal(got, got_s), "binary shadow: occ depends on the sort")
+            check(torch.equal(got, got_s), f"binary {name}: occ depends on the sort")
             t0 = time.time()
             ref = pk.packet_any_hit_reference(pack, so, sd, st, stats=stats)
             torch.cuda.synchronize()
             plain_ms[name] = (time.time() - t0) * 1e3
-            check(torch.equal(got[sub], ref), "binary shadow: occ differs on "
+            check(torch.equal(got[sub], ref), f"binary {name}: occ differs on "
                   f"{int((got[sub] != ref).sum())} lanes")
             check(not bool(got[t <= 0].any()),
-                  "binary shadow: a dead lane is occluded")
-            check(int(ref.sum()) > 0, "binary shadow: no ray is occluded")
+                  f"binary {name}: a dead lane is occluded")
+            check(int(ref.sum()) > 0, f"binary {name}: no ray is occluded")
             cases.append(dict(kernel="packet_any_hit", case=name, n_rays=n,
                               plain_on=f"a sub-sample of {len(sub)} rays",
                               max_abs_err=0.0,
@@ -721,52 +848,42 @@ def phase_packet_kernels(dev, scene, cfg, rays, wide_times, wide_visits):
     lo, hi = pack.nodes[0, 0:3], pack.nodes[0, 3:6]
     times = {}
     for name, (o, d, t) in rays.items():
-        fn = pk.packet_any_hit if name == "shadow" else pk.packet_closest_hit
-        os_, ds_, ts_ = sorted_rays(o, d, t, lo, hi, cfg.sort_key)
-        times[name] = dict(
-            unsorted_ms=time_cuda(lambda: fn(pack, o, d, t, sort=False), 10, flush),
-            sorted_ms=time_cuda(lambda: fn(pack, os_, ds_, ts_, sort=False), 10, flush),
-            wrapper_ms=time_cuda(
-                lambda: fn(pack, o, d, t, sort=True, sort_key=cfg.sort_key),
-                10, flush),
-            wide_kernel_sorted_ms=wide_times[name]["sorted_ms"],
-            wide_kernel_unsorted_ms=wide_times[name]["unsorted_ms"],
-            alive_fraction=float((t > 0).float().mean()))
+        fn = pk.packet_any_hit if name in ANY_HIT_SETS else pk.packet_closest_hit
+        times[name] = cast_times(fn, pack, o, d, t, lo, hi, cfg.sort_key, flush)
+        times[name]["wide_kernel_ms_unsorted"] = wide_times[name]["kernel_ms_unsorted"]
+        times[name]["wide_kernel_ms_sorted"] = wide_times[name]["kernel_ms_sorted"]
+        times[name]["bound_ms"] = cast_bound(
+            n, name, table_bytes, visits[name], OPS_PER_NODE)[0]
     emit({"phase": "packet_kernel_times", "n_rays": n, "times": times,
           "plain_ms_on_subsample": plain_ms, "subsample": len(sub),
           "visits_scaled_to_n_rays": visits,
           "wide_visits_scaled_to_n_rays": wide_visits})
 
-    def record(name, entry, body_line, out_bytes, case):
+    def record(name, entry, body_line, case):
         v = visits[case]
-        # bytes as for the wide kernels: every ray in, every result out, the
-        # tree's tables once; what the walk loads per visit comes from the L2
-        # cache and is reported beside the bound, not in it
-        bound_ms, bound_by, bytes_ms, ops_ms = bound(
-            n * (28 + out_bytes) + table_bytes,
-            v["node_visits"] * OPS_PER_NODE
-            + v["leaf_visits"] * 4 * OPS_PER_PAIR)
+        # what the walk loads per visit comes from the L2 cache and is
+        # reported beside the bound, not in it
+        bound_ms, bound_by, bytes_ms, ops_ms = cast_bound(
+            n, case, table_bytes, v, OPS_PER_NODE)
         errs = [c["max_abs_err"] for c in cases if c["kernel"] == name]
         return dict(
             name=name, route="cuda",
             source="gnxraytracer_tpu_torch/csrc/packet_bvh.cu",
             replaces=f"gnxraytracer_tpu/ops/pallas_bvh.py:{body_line}",
             launches=None, max_abs_err=max(errs),
-            ms=times[case]["sorted_ms"], plain_ms=plain_ms[case],
+            plain_ms=plain_ms[case],
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             shape={"n_rays": n, "rays": case, "entry": entry,
                    "plain_n_rays": len(sub)},
             bytes_ms=bytes_ms, ops_ms=ops_ms, table_bytes=table_bytes,
             table_load_bytes=v["node_visits"] * BYTES_PER_NODE
             + v["leaf_visits"] * BYTES_PER_LEAF_ROW,
-            ms_unsorted=times[case]["unsorted_ms"],
-            ms_wrapper_with_sort=times[case]["wrapper_ms"],
-            ms_wide_kernel_same_rays=times[case]["wide_kernel_sorted_ms"],
+            **main_path_ms(times[case], pk.packet_closest_hit),
             node_visits=v["node_visits"], leaf_visits=v["leaf_visits"])
 
-    return (pk, record("packet_closest_hit", "gnx_packet_closest_hit", 195, 21,
+    return (pk, record("packet_closest_hit", "gnx_packet_closest_hit", 195,
                        "bounce"),
-            record("packet_any_hit", "gnx_packet_any_hit", 544, 1, "shadow"))
+            record("packet_any_hit", "gnx_packet_any_hit", 544, "shadow"))
 
 
 # ---------------------------------------------------------------------------
@@ -875,12 +992,13 @@ def phase_main_path(dev, ch, wb, pk):
 
 
 @contextlib.contextmanager
-def casts_unsorted(wb):
-    """The wide-BVH wrappers with their coherence sort off (a measurement
-    aid: the render configuration has no such switch)."""
+def casts_sorted(wb):
+    """The wide-BVH wrappers with their coherence sort on (a measurement
+    aid: they do not sort by default, and the render configuration has no
+    such switch)."""
     closest, any_hit = wb.wide_closest_hit, wb.wide_any_hit
-    wb.wide_closest_hit = functools.partial(closest, sort=False)
-    wb.wide_any_hit = functools.partial(any_hit, sort=False)
+    wb.wide_closest_hit = functools.partial(closest, sort=True)
+    wb.wide_any_hit = functools.partial(any_hit, sort=True)
     try:
         yield
     finally:
@@ -936,18 +1054,18 @@ def phase_mesh_path(dev, ch, wb, pk, setup, tmp):
     check(0.02 < mean < 50.0, f"mesh image mean {mean}: black or blown out")
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
 
-    # the same chunk with the coherence sort on and off, in turns (on, off,
-    # off, on), SORT_ROUNDS rounds: the chunk is bound by the host, whose
-    # times spread, so the medians are what to compare
+    # the same chunk with the coherence sort off (the default) and on, in
+    # turns (off, on, on, off), SORT_ROUNDS rounds: the chunk is bound by
+    # the host, whose times spread, so the medians are what to compare
     sort_on, sort_off = [], []
     for _ in range(SORT_ROUNDS):
-        ms, img_on = timed_chunk(path, scene, cam, smp, cfg, 4)
-        sort_on.append(ms)
-        with casts_unsorted(wb):
-            ms, img_off = timed_chunk(path, scene, cam, smp, cfg, 4)
-            sort_off.append(ms)
-            sort_off.append(timed_chunk(path, scene, cam, smp, cfg, 4)[0])
-        sort_on.append(timed_chunk(path, scene, cam, smp, cfg, 4)[0])
+        ms, img_off = timed_chunk(path, scene, cam, smp, cfg, 4)
+        sort_off.append(ms)
+        with casts_sorted(wb):
+            ms, img_on = timed_chunk(path, scene, cam, smp, cfg, 4)
+            sort_on.append(ms)
+            sort_on.append(timed_chunk(path, scene, cam, smp, cfg, 4)[0])
+        sort_off.append(timed_chunk(path, scene, cam, smp, cfg, 4)[0])
         check(torch.equal(img_on, img_off),
               "the image depends on the coherence sort")
     emit({"phase": "main_path", "scene": "envmap_mesh", "entry": "path.render",
@@ -1003,7 +1121,7 @@ def phase_mesh_path(dev, ch, wb, pk, setup, tmp):
           "image_mean": float(img_k.mean())})
     check(bool(close.all()), "cross-check: the kernels' image differs from "
           "the plain walk's")
-    return launches, img_on
+    return launches, img_off
 
 
 # ---------------------------------------------------------------------------
@@ -1178,7 +1296,6 @@ def cast_both_walks(dev, scene, cfg, wb, pk, rays_label, o, d, t, need_hits,
              wide.frame[0:3] + 255.0 * wide.frame[3:6])):
         cast = getattr(mod, f"{label}_{kind}")
         plain = getattr(mod, f"{label}_{kind}_reference")
-        os_, ds_, ts_ = sorted_rays(o, d, t, lo, hi, cfg.sort_key)
         stats = {}
         ref = plain(pack, *args_sub, stats=stats)
         got = cast(pack, o, d, t)
@@ -1197,12 +1314,7 @@ def cast_both_walks(dev, scene, cfg, wb, pk, rays_label, o, d, t, need_hits,
                                     args_sub[2], need_hits=need_hits)
             frac = {"hit_fraction": float(got.hit.float().mean())}
         out[label] = dict(
-            unsorted_ms=time_cuda(lambda: cast(pack, o, d, t, sort=False),
-                                  10, flush),
-            sorted_ms=time_cuda(lambda: cast(pack, os_, ds_, ts_, sort=False),
-                                10, flush),
-            wrapper_ms=time_cuda(
-                lambda: cast(pack, o, d, t, sort_key=cfg.sort_key), 10, flush),
+            **cast_times(cast, pack, o, d, t, lo, hi, cfg.sort_key, flush),
             node_visits_per_live_ray=stats["node_visits"] / alive,
             leaf_rows_per_live_ray=stats["leaf_visits"] / alive,
             max_abs_err_vs_plain=err, **frac)
@@ -1411,8 +1523,7 @@ def profile_chunk(label, scene, cam, cfg, smp, mod=None):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     chunk_ops = count_dispatched_ops(lambda: chunk(n_spp))
-    ours = [r for r in rows if "closest_hit_kernel" in r[0]
-            or "wide_bvh_kernel" in r[0] or "packet_bvh_kernel" in r[0]]
+    ours = [r for r in rows if any(k in r[0] for k in KERNEL_NAMES)]
     emit({"phase": "profile", "scene": label,
           "lanes": cfg.width * cfg.height * n_spp, "chunk_wall_ms": wall_plain,
           "chunk_wall_ms_profiled": wall_prof,
@@ -1578,7 +1689,8 @@ def main():
               "flags": " ".join(build.NVCC_FLAGS),
               "sources": {n: {"seconds": build.build_log[n]["seconds"],
                               "cached": build.build_log[n]["cached"],
-                              "ptxas": build.build_log[n]["ptxas"].strip()}
+                              "ptxas": build.build_log[n]["ptxas"].strip(),
+                              "entries": ptxas_summary(build.build_log[n]["ptxas"])}
                           for n in names}})
 
         ch, record = phase_kernels(dev)

@@ -9,12 +9,15 @@ tensors they run ``wide_closest_hit_reference`` / ``wide_any_hit_reference``,
 which are also what the kernels are held against on the card.
 
 The plain versions walk the SAME packed table (ops/wbvh.WidePack) in
-lockstep: every lane keeps its own stack in an (N, S) tensor and each step
-pops one entry per live lane, a node (8 quantized child boxes, slab test,
-push far to near in the order word of the lane's own direction octant) or a
-leaf row (LEAF_SIZE watertight tests in row order, strict t < t_best).  A
-lane's sequence of visits is exactly a kernel thread's, so ties in t go to
-the same triangle in both.
+lockstep, in the kernel's order: a lane whose ray misses the frame's box
+never starts; otherwise it visits the root, and each step takes one entry per
+live lane, the next slot of its current node group (a node and its wanted
+slots not yet taken, near first in the order word of the lane's own
+direction octant): a node (8 quantized child boxes, slab test; its wanted
+children become the group, the rest of the old group goes on the lane's
+stack) or a leaf row (LEAF_SIZE watertight tests in row order, strict t <
+t_best).  A lane's sequence of visits is exactly a kernel thread's, so ties
+in t go to the same triangle in both.
 """
 
 import ctypes
@@ -84,9 +87,37 @@ def _leaf_rows(pack, row, li, o, frame, t_best, tri, u, v, found, any_hit):
     return found_l
 
 
-def _walk(pack, o, d, t_max, any_hit, stats=None):
+def _frame_box_hit(pack, o, inv, t_best):
+    """The slab test of the frame's box (bytes 0 and 255 on every axis), as
+    the kernel makes it before it loads a node: every child box lies inside
+    that box, so a ray that misses it misses the tree."""
+    lo = pack.frame[0:3]
+    hi = lo + 255.0 * pack.frame[3:6]
+    t0, t1 = (lo - o) * inv, (hi - o) * inv
+    tn = torch.amax(torch.minimum(t0, t1), dim=1)
+    tf = torch.amin(torch.maximum(t0, t1), dim=1) * _SLAB_WIDEN
+    return (tn <= tf) & (tf > 0) & (tn < t_best) & (t_best > 0)
+
+
+# ctz of a byte: the position of its lowest set bit (0 for 0, never asked)
+_LOWEST_BIT = [((m & -m).bit_length() - 1) if m else 0 for m in range(256)]
+
+
+def _walk(pack, o, d, t_max, any_hit, stats=None, trace=None):
     """The lockstep walk both plain versions share.  Returns (t_best, tri,
-    u, v, found); tri = -1 where nothing was found."""
+    u, v, found); tri = -1 where nothing was found.
+
+    A lane's state is its current node group (a node and the mask of its
+    wanted slots not yet taken, bit j = the j-th position of the lane's
+    octant order) and a stack of such groups, one entry per level at most.
+    Each step takes one entry per live lane: the next slot of its group (or,
+    with the group spent, of the group it pops), a leaf row or a wide node
+    whose wanted children become the new group (the old one, if anything is
+    left of it, is pushed).  stats: an optional dict that gets node_visits,
+    leaf_visits (summed over rays) and max_stack (entries on a lane's stack
+    at most) added.  trace: an optional list that gets one (lanes, entries)
+    pair of tensors per step: the node ids (>= 0) and leaf codes (< 0) the
+    lanes visited, the root first."""
     n = o.shape[0]
     dev = o.device
     cap = pack.stack_size
@@ -97,6 +128,7 @@ def _walk(pack, o, d, t_max, any_hit, stats=None):
     slot = torch.arange(WIDTH, device=dev)
     word_of = (2 * torch.arange(6, device=dev)[:, None] + slot[None, :] // 4)
     shift_of = (8 * (slot % 4))[None, None, :]
+    lowest_bit = torch.tensor(_LOWEST_BIT, dtype=torch.int64, device=dev)
 
     inv = _safe_inv(d)
     neg = (d < 0).to(torch.int64)
@@ -108,62 +140,98 @@ def _walk(pack, o, d, t_max, any_hit, stats=None):
     u = torch.zeros((n,), dtype=torch.float32, device=dev)
     v = torch.zeros((n,), dtype=torch.float32, device=dev)
     found = torch.zeros((n,), dtype=torch.bool, device=dev)
-    stack = torch.zeros((n, cap), dtype=torch.int32, device=dev)  # root = 0
-    sp = (t_best > 0).to(torch.int64)  # dead lanes never start
+    grp_node = torch.zeros((n,), dtype=torch.int64, device=dev)
+    grp_mask = torch.zeros((n,), dtype=torch.int64, device=dev)
+    stack = torch.zeros((n, max(cap, 1)), dtype=torch.int64, device=dev)
+    sp = torch.zeros((n,), dtype=torch.int64, device=dev)
+    node_visits = leaf_visits = max_stack = 0
 
-    node_visits = leaf_visits = 0
+    def visit(lanes, nodes):
+        """Lanes `lanes` visit wide nodes `nodes`: where any child is
+        wanted, that node with its wanted positions becomes the group."""
+        r = rec[nodes]                                            # (M, 32)
+        words = r[:, :BOUND_WORDS].to(torch.int64) & 0xFFFFFFFF
+        q = (words[:, word_of] >> shift_of) & 255                 # (M, 6, 8)
+        box = f_lo + q.to(torch.float32) * f_sc
+        oo = o[lanes][:, :, None]
+        ii = inv[lanes][:, :, None]
+        t0 = (box[:, 0:3] - oo) * ii
+        t1 = (box[:, 3:6] - oo) * ii
+        tn = torch.amax(torch.minimum(t0, t1), dim=1)              # (M, 8)
+        tf = torch.amin(torch.maximum(t0, t1), dim=1) * _SLAB_WIDEN
+        tb = t_best[lanes][:, None]
+        tg = r[:, TARGET_WORD0:TARGET_WORD0 + WIDTH]
+        want = ((tn <= tf) & (tf > 0) & (tn < tb) & (tb > 0) & (tg != 0))
+        rows = torch.arange(lanes.numel(), device=dev)
+        order = r[rows, ORDER_WORD0 + octant[lanes]].to(torch.int64) & 0xFFFFFFFF
+        pos = torch.zeros_like(nodes)
+        for j in range(WIDTH):
+            sl = ((order >> (3 * j)) & 7)[:, None]
+            pos |= want.gather(1, sl)[:, 0].to(torch.int64) << j
+        go = pos != 0
+        lanes, nodes, pos = lanes[go], nodes[go], pos[go]
+        keep = grp_mask[lanes] != 0
+        pl = lanes[keep]
+        if pl.numel():
+            at = sp[pl]
+            if bool((at >= cap).any()):
+                raise RuntimeError(
+                    "wide BVH walk: traversal stack overflow (the pack's "
+                    f"stack_size {cap} is too small for its tree)")
+            stack[pl, at] = (grp_node[pl] << 8) | grp_mask[pl]
+            sp[pl] = at + 1
+        grp_node[lanes] = nodes
+        grp_mask[lanes] = pos
+
+    enter = torch.nonzero(_frame_box_hit(pack, o, inv, t_best))[:, 0]
+    if enter.numel():
+        node_visits += int(enter.numel())
+        root = torch.zeros_like(enter)
+        if trace is not None:
+            trace.append((enter, root))
+        visit(enter, root)
     while True:
-        live = torch.nonzero(sp > 0)[:, 0]
+        # a spent group gives way to the group on top of the stack
+        pop = torch.nonzero((grp_mask == 0) & (sp > 0))[:, 0]
+        if pop.numel():
+            sp[pop] -= 1
+            e = stack[pop, sp[pop]]
+            grp_node[pop] = e >> 8
+            grp_mask[pop] = e & 255
+        live = torch.nonzero(grp_mask != 0)[:, 0]
         if live.numel() == 0:
             break
-        top = sp[live] - 1
-        entry = stack[live, top]
-        sp[live] = top
-        is_leaf = entry < 0
+        if stats is not None:
+            max_stack = max(max_stack, int(sp.max()))
+        m = grp_mask[live]
+        j = lowest_bit[m]
+        grp_mask[live] = m & (m - 1)
+        node = grp_node[live]
+        order = rec[node, ORDER_WORD0 + octant[live]].to(torch.int64) & 0xFFFFFFFF
+        slot = (order >> (3 * j)) & 7
+        target = rec[node, TARGET_WORD0 + slot].to(torch.int64)
+        if trace is not None:
+            trace.append((live, target))
 
+        is_leaf = target < 0
         ni = live[~is_leaf]
         if ni.numel():
             node_visits += int(ni.numel())
-            r = rec[entry[~is_leaf].long()]                       # (M, 32)
-            words = r[:, :BOUND_WORDS].to(torch.int64) & 0xFFFFFFFF
-            q = (words[:, word_of] >> shift_of) & 255             # (M, 6, 8)
-            box = f_lo + q.to(torch.float32) * f_sc
-            oo = o[ni][:, :, None]
-            ii = inv[ni][:, :, None]
-            t0 = (box[:, 0:3] - oo) * ii
-            t1 = (box[:, 3:6] - oo) * ii
-            tn = torch.amax(torch.minimum(t0, t1), dim=1)          # (M, 8)
-            tf = torch.amin(torch.maximum(t0, t1), dim=1) * _SLAB_WIDEN
-            tb = t_best[ni][:, None]
-            tg = r[:, TARGET_WORD0:TARGET_WORD0 + WIDTH]
-            want = ((tn <= tf) & (tf > 0) & (tn < tb) & (tb > 0) & (tg != 0))
-            rows = torch.arange(ni.numel(), device=dev)
-            order = r[rows, ORDER_WORD0 + octant[ni]].to(torch.int64) & 0xFFFFFFFF
-            for j in range(WIDTH - 1, -1, -1):  # far to near
-                sl = ((order >> (3 * j)) & 7)[:, None]
-                push = want.gather(1, sl)[:, 0]
-                lanes = ni[push]
-                if lanes.numel() == 0:
-                    continue
-                at = sp[lanes]
-                if bool((at >= cap).any()):
-                    raise RuntimeError(
-                        "wide BVH walk: traversal stack overflow (the pack's "
-                        f"stack_size {cap} is too small for its tree)")
-                stack[lanes, at] = tg.gather(1, sl)[:, 0][push]
-                sp[lanes] = at + 1
-
+            visit(ni, target[~is_leaf])
         li = live[is_leaf]
         if li.numel():
             leaf_visits += int(li.numel())
-            row = (-entry[is_leaf].long() - 1)
+            row = -target[is_leaf] - 1
             found_l = _leaf_rows(pack, row, li, o, (m0, m1, sx, sy, sz),
                                  t_best, tri, u, v, found, any_hit)
-            if any_hit:
-                sp[li[found_l]] = 0  # the first hit before t_max ends the walk
+            if any_hit:  # the first hit before t_max ends the walk
+                done = li[found_l]
+                grp_mask[done] = 0
+                sp[done] = 0
     if stats is not None:
         stats["node_visits"] = stats.get("node_visits", 0) + node_visits
         stats["leaf_visits"] = stats.get("leaf_visits", 0) + leaf_visits
+        stats["max_stack"] = max(stats.get("max_stack", 0), max_stack)
     return t_best, tri, u, v, found
 
 
@@ -173,16 +241,17 @@ def _trihit(t, tri, u, v, found):
                   b=torch.stack([1.0 - u - v, u, v], dim=-1))
 
 
-def wide_closest_hit_reference(pack, o, d, t_max, stats=None):
-    """Plain PyTorch version of the closest-hit kernel, any device.  stats:
-    an optional dict that gets the walk's node_visits and leaf_visits
-    (entries popped, summed over rays) added."""
-    return _trihit(*_walk(pack, o, d, t_max, any_hit=False, stats=stats))
+def wide_closest_hit_reference(pack, o, d, t_max, stats=None, trace=None):
+    """Plain PyTorch version of the closest-hit kernel, any device.  stats,
+    trace: see _walk (node and leaf visits summed over rays, the deepest
+    stack, the sequence of visits)."""
+    return _trihit(*_walk(pack, o, d, t_max, any_hit=False, stats=stats,
+                          trace=trace))
 
 
-def wide_any_hit_reference(pack, o, d, t_max, stats=None):
+def wide_any_hit_reference(pack, o, d, t_max, stats=None, trace=None):
     """Plain PyTorch version of the any-hit kernel: (N,) bool."""
-    return _walk(pack, o, d, t_max, any_hit=True, stats=stats)[4]
+    return _walk(pack, o, d, t_max, any_hit=True, stats=stats, trace=trace)[4]
 
 
 # ---------------------------------------------------------------------------
@@ -199,9 +268,10 @@ def _kernel_fns():
         p = ctypes.c_void_p
         lib.gnx_wide_stack_cap.argtypes = []
         lib.gnx_wide_stack_cap.restype = ctypes.c_int
-        lib.gnx_wide_closest_hit.argtypes = [p] * 11 + [ctypes.c_longlong, p]
+        tail = [ctypes.c_longlong, ctypes.c_int, p, p, p]
+        lib.gnx_wide_closest_hit.argtypes = [p] * 11 + tail
         lib.gnx_wide_closest_hit.restype = ctypes.c_int
-        lib.gnx_wide_any_hit.argtypes = [p] * 8 + [ctypes.c_longlong, p]
+        lib.gnx_wide_any_hit.argtypes = [p] * 8 + tail
         lib.gnx_wide_any_hit.restype = ctypes.c_int
         _fns = (lib.gnx_wide_closest_hit, lib.gnx_wide_any_hit,
                 int(lib.gnx_wide_stack_cap()))
@@ -273,36 +343,52 @@ def _root_box(pack):
     return lo, lo + 255.0 * pack.frame[3:6]
 
 
-def _check_stack(pack, cap):
+def _walk_state(pack, n, cap, dev):
+    """The kernels' last arguments but the stream: the pack's stack size, a
+    zeroed int64 counter and an int32 scratch list of n rays (the rays the
+    triage pass lists for the walk), allocated on the device's current
+    stream.  Returns (the tensors, to keep them alive until the launch is
+    queued; the arguments)."""
     if pack.stack_size > cap:
         raise ValueError(
             f"the tree needs a traversal stack of {pack.stack_size} entries; "
-            f"the kernel is built with {cap}")
+            f"the kernel takes at most {cap}")
+    if pack.rec.shape[0] >= 1 << 23:
+        raise ValueError("a stack entry holds a node id below 2**23, the "
+                         f"tree has {pack.rec.shape[0]} nodes")
+    if n > 1 << 30:
+        raise ValueError(f"a cast takes at most 2**30 rays, not {n}")
+    listed = torch.zeros((1,), dtype=torch.int64, device=dev)
+    scratch = torch.empty((n,), dtype=torch.int32, device=dev)
+    return (listed, scratch), (max(pack.stack_size, 1), listed.data_ptr(),
+                               scratch.data_ptr())
 
 
-def wide_closest_hit(pack, o, d, t_max, sort=True, sort_key="oct_morton"):
+def wide_closest_hit(pack, o, d, t_max, sort=False, sort_key="oct_morton"):
     """Closest hit of N rays against the width-8 BVH table `pack`
     (ops/wbvh.WidePack).
 
     o, d: (N,3) float32; t_max: (N,) float32; all contiguous and on the
     pack's device.  sort: cast the rays in coherence order (results do not
-    depend on it).  Returns TriHit(hit (N,) bool, t (N,) f32 — INFINITY on a
-    miss, tri (N,) i32 — 0 on a miss, b (N,3) f32 = (1-u-v, u, v))."""
+    depend on it; off by default: on an H100 the sort costs several times
+    what it saves the kernel, whose warps take new rays as theirs end).
+    Returns TriHit(hit (N,) bool, t (N,) f32 — INFINITY on a miss, tri (N,)
+    i32 — 0 on a miss, b (N,3) f32 = (1-u-v, u, v))."""
     n, dev = _check_args(pack, o, d, t_max)
 
     def cast(o, d, t_max):
         if dev.type == "cpu":
             return wide_closest_hit_reference(pack, o, d, t_max)
         fn, _, cap = _kernel_fns()
-        _check_stack(pack, cap)
         out = _empty_trihit(n, dev)
         if n > 0:
+            _keep, state = _walk_state(pack, n, cap, dev)
             _launch(dev, fn, "wide_closest_hit",
                     pack.rec.data_ptr(), pack.frame.data_ptr(),
                     pack.leafs.data_ptr(), pack.tid.data_ptr(),
                     o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
                     out.t.data_ptr(), out.tri.data_ptr(), out.b.data_ptr(),
-                    out.hit.data_ptr(), n)
+                    out.hit.data_ptr(), n, *state)
             global closest_launch_count
             closest_launch_count += 1
         return out
@@ -311,7 +397,7 @@ def wide_closest_hit(pack, o, d, t_max, sort=True, sort_key="oct_morton"):
                         sort_key)
 
 
-def wide_any_hit(pack, o, d, t_max, sort=True, sort_key="oct_morton"):
+def wide_any_hit(pack, o, d, t_max, sort=False, sort_key="oct_morton"):
     """Whether each of N rays hits anything before its t_max: (N,) bool.
     Arguments as for wide_closest_hit."""
     n, dev = _check_args(pack, o, d, t_max)
@@ -320,14 +406,14 @@ def wide_any_hit(pack, o, d, t_max, sort=True, sort_key="oct_morton"):
         if dev.type == "cpu":
             return wide_any_hit_reference(pack, o, d, t_max)
         _, fn, cap = _kernel_fns()
-        _check_stack(pack, cap)
         occ = torch.empty((n,), dtype=torch.bool, device=dev)
         if n > 0:
+            _keep, state = _walk_state(pack, n, cap, dev)
             _launch(dev, fn, "wide_any_hit",
                     pack.rec.data_ptr(), pack.frame.data_ptr(),
                     pack.leafs.data_ptr(), pack.tid.data_ptr(),
                     o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
-                    occ.data_ptr(), n)
+                    occ.data_ptr(), n, *state)
             global any_launch_count
             any_launch_count += 1
         return occ

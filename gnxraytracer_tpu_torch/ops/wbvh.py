@@ -275,7 +275,8 @@ class WidePack(NamedTuple):
     frame: (8,) f32 [lo.xyz, scale.xyz, 0, 0] dequantization frame
     leafs: (rows, LEAF_SIZE*9) f32 packed leaf triangle rows
     tid:   (rows, LEAF_SIZE) i32 triangle ids (-1 pad)
-    stack_size: entries a per-ray traversal stack needs at most on this tree
+    stack_size: entries a per-ray stack of node groups needs at most on
+                this tree
     """
     rec: torch.Tensor
     frame: torch.Tensor
@@ -298,8 +299,9 @@ def pack_wide(bounds, targ, perms):
     """(bounds, targ, perms) of collapse_bvhw at width 8 -> (rec (NW, 32)
     i32, frame (8,) f32, stack_size), host arrays.
 
-    A walk pops one entry and pushes at most 8, so its stack never holds
-    more than 7 * depth + 1 entries."""
+    A walk keeps one node group (a node and its wanted slots not yet taken)
+    a level of the tree: its stack never holds more than depth - 1 entries
+    beside the current group, and depth + 1 leaves room to spare."""
     nw = bounds.shape[0]
     if bounds.shape[2] != WIDTH:
         raise ValueError(f"the GPU record is for width {WIDTH}")
@@ -308,7 +310,7 @@ def pack_wide(bounds, targ, perms):
     _pack_bytes(rec, q, WIDTH)
     rec[:, TARGET_WORD0:TARGET_WORD0 + WIDTH] = targ
     _pack_orders(rec, perms, WIDTH, ORDER_WORD0)
-    return rec, _frame(f_lo, scale)[0], 7 * wide_depth(targ) + 1
+    return rec, _frame(f_lo, scale)[0], wide_depth(targ) + 1
 
 
 def unpack_wide(rec, frame):

@@ -161,6 +161,8 @@ def test_kernel_sources_have_the_entry_points_the_wrappers_bind():
         assert f'extern "C" int {entry}(' in src
     assert '#include "watertight.cuh"' in src and "cudaGetLastError" in src
     assert "template <bool kAnyHit>" in src
+    # the node-group stack lives in shared memory, not in a local array
+    assert "extern __shared__ int stack_smem[];" in src and "int stack[" not in src
     with open(os.path.join(build.CSRC_DIR, "closest_hit.cu")) as f:
         assert '#include "watertight.cuh"' in f.read()
     with open(os.path.join(build.CSRC_DIR, "packet_bvh.cu")) as f:

@@ -35,6 +35,7 @@ from gnxraytracer_tpu_torch.constants import INFINITY
 from gnxraytracer_tpu_torch.kernels import wide_bvh as T_wk
 from gnxraytracer_tpu_torch.ops import bvh as T_bvh
 from gnxraytracer_tpu_torch.ops import intersect as T_int
+from gnxraytracer_tpu_torch.ops import wbvh as T_wb
 
 N_RAYS = 2048  # one ray block of the TPU kernel: interpret mode is slow
 
@@ -226,7 +227,11 @@ def test_walk_counts_its_visits(case):
     T_wk.wide_closest_hit_reference(case["pack"], *args, stats=s_c)
     T_wk.wide_any_hit_reference(case["pack"], *args, stats=s_a)
     alive = int((case["t_max"] > 0).sum())
-    assert s_c["node_visits"] >= alive  # every live ray pops the root
+    entering = int(T_wk._frame_box_hit(case["pack"], args[0],
+                                       T_wk._safe_inv(args[1]), args[2]).sum())
+    assert 0 < entering <= alive
+    # every live ray that enters the frame's box visits the root, no other
+    assert s_c["node_visits"] >= entering
     assert s_c["leaf_visits"] > 0
     # the any-hit walk ends at its first hit: never more work than closest
     assert s_a["node_visits"] <= s_c["node_visits"]
@@ -290,10 +295,143 @@ def test_stack_overflow_fails_loudly():
     v, t = blob(12)
     pack = T_bvh.build_bvh(v, t, builder="numpy", device="cpu").wide
     o, d = incoherent_rays(200, v.min(0), v.max(0))
-    t_max = torch.full((200,), 1e30)
+    args = (torch.from_numpy(o), torch.from_numpy(d), torch.full((200,), 1e30))
+    stats = {}
+    T_wk.wide_closest_hit_reference(pack, *args, stats=stats)
+    assert stats["max_stack"] >= 1
     with pytest.raises(RuntimeError, match="stack overflow"):
-        T_wk.wide_closest_hit(pack._replace(stack_size=2),
-                              torch.from_numpy(o), torch.from_numpy(d), t_max)
+        T_wk.wide_closest_hit(pack._replace(stack_size=stats["max_stack"] - 1),
+                              *args)
+
+
+# -- the node-group walk: order, stack depth, the frame's box ---------------------
+
+def _dfs_visits(pack, o, d, t_max):
+    """A recursive depth-first walk of one ray over unpack_wide's boxes,
+    targets and octant orders, written independently of the plain walk: the
+    frame's box first, then at each node the 8 slab tests against the t_best
+    of that moment and the wanted children nearest first, a leaf row tested
+    where it is met.  Returns the visited node ids (>= 0) and leaf codes
+    (< 0) in order."""
+    lo, hi, targ, perms = T_wb.unpack_wide(pack.rec.numpy(), pack.frame.numpy())
+    lo, hi = torch.from_numpy(lo), torch.from_numpy(hi)
+    ot, dt = torch.from_numpy(o[None]), torch.from_numpy(d[None])
+    inv = T_wk._safe_inv(dt)[0]
+    octant = int(sum(1 << k for k in range(3) if d[k] < 0))
+    (m0, m1), (sx, sy, sz) = T_int._permute_shear(dt)
+    state = dict(t=torch.tensor([float(t_max)]), tri=torch.full((1,), -1, dtype=torch.int32),
+                 u=torch.zeros(1), v=torch.zeros(1), found=torch.zeros(1, dtype=torch.bool))
+    seq = []
+
+    def want(blo, bhi):
+        t0 = (blo - ot[0][:, None]) * inv[:, None]
+        t1 = (bhi - ot[0][:, None]) * inv[:, None]
+        tn = torch.amax(torch.minimum(t0, t1), dim=0)
+        tf = torch.amin(torch.maximum(t0, t1), dim=0) * T_wk._SLAB_WIDEN
+        tb = state["t"]
+        return (tn <= tf) & (tf > 0) & (tn < tb) & (tb > 0)
+
+    def visit(node):
+        seq.append(node)
+        w = want(lo[node], hi[node]) & torch.from_numpy(targ[node] != 0)
+        for j in range(8):
+            slot = int(perms[node, octant, j])
+            if not bool(w[slot]):
+                continue
+            c = int(targ[node, slot])
+            if c > 0:
+                visit(c)
+            else:
+                seq.append(c)
+                T_wk._leaf_rows(pack, torch.tensor([-c - 1]), torch.tensor([0]),
+                                ot, (m0, m1, sx, sy, sz), state["t"],
+                                state["tri"], state["u"], state["v"],
+                                state["found"], False)
+
+    f_lo, f_sc = pack.frame[0:3], pack.frame[3:6]
+    if bool(want((f_lo)[:, None], (f_lo + 255.0 * f_sc)[:, None])[0]):
+        visit(0)
+    return seq
+
+
+@pytest.mark.parametrize("name", ["blob20-incoherent", "soup37-camera"])
+def test_node_groups_keep_the_depth_first_order(name):
+    """The plain walk's sequence of visits, lane by lane, is a recursive
+    depth-first walk's over the same boxes (nearest wanted child first in the
+    ray's octant order, culled against t_best as it stands): the node-group
+    stack keeps the order of pushing every child far to near."""
+    case = make_case(name)
+    lanes = np.arange(0, N_RAYS, 7)[:300]
+    o, d, t_max = (case[k][lanes] for k in ("o", "d", "t_max"))
+    trace = []
+    T_wk.wide_closest_hit_reference(case["pack"], torch.from_numpy(o),
+                                    torch.from_numpy(d), torch.from_numpy(t_max),
+                                    trace=trace)
+    seqs = [[] for _ in lanes]
+    for ln, ent in trace:
+        for a, b in zip(ln.tolist(), ent.tolist()):
+            seqs[a].append(b)
+    deep = 0
+    for k in range(len(lanes)):
+        assert seqs[k] == _dfs_visits(case["pack"], o[k], d[k], t_max[k]), k
+        deep += len(seqs[k]) > 2
+    assert deep > len(lanes) // 10  # the set goes below the root
+
+
+def test_stack_holds_one_group_a_level(case):
+    """A lane's stack never holds more than depth + 1 entries (the pack's
+    stack_size), closest hit or any hit."""
+    depth = T_wb.wide_depth(case["pack"].rec[:, T_wb.TARGET_WORD0:
+                                            T_wb.TARGET_WORD0 + 8].numpy())
+    assert case["pack"].stack_size == depth + 1
+    args = [torch.from_numpy(case[k]) for k in ("o", "d", "t_max")]
+    for fn in (T_wk.wide_closest_hit_reference, T_wk.wide_any_hit_reference):
+        stats = {}
+        fn(case["pack"], *args, stats=stats)
+        assert stats["max_stack"] <= depth + 1
+        assert stats["max_stack"] <= max(depth - 1, 0)
+
+
+def test_frame_box_exit_changes_no_result(monkeypatch):
+    """Rays aimed just beside the tree, just inside its box and through it:
+    the walk with the frame-box test gives the same hits, t, tri and b as
+    the same walk that visits the root on every live lane, and as brute
+    force; a lane that misses the frame's box visits nothing."""
+    v, t = blob(12)
+    pack = T_bvh.build_bvh(v, t, builder="numpy", device="cpu").wide
+    lo, hi = v.min(0), v.max(0)
+    rs = np.random.RandomState(5)
+    n = 600
+    c, ext = (lo + hi) / 2, hi - lo
+    # targets on the box's faces, pushed out by up to 2% or in by up to 2%
+    axis = rs.randint(0, 3, n)
+    side = rs.randint(0, 2, n)
+    target = c + (rs.rand(n, 3) - 0.5) * ext
+    push = (rs.rand(n) * 0.04 - 0.02) * ext[axis]
+    target[np.arange(n), axis] = np.where(side, hi[axis] + push, lo[axis] - push)
+    o = (target + rs.randn(n, 3) * ext.max() * 2).astype(np.float32)
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    args = [torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(mixed_t_max(n, float(ext.max()) * 8))]
+    trace = []
+    with_exit = T_wk.wide_closest_hit_reference(pack, *args, trace=trace)
+    occ = T_wk.wide_any_hit_reference(pack, *args)
+    enter = T_wk._frame_box_hit(pack, args[0], T_wk._safe_inv(args[1]), args[2])
+    assert 0 < int(enter.sum()) < int((args[2] > 0).sum())  # both kinds
+    visited = torch.zeros(n, dtype=torch.bool)
+    for ln, _ in trace:
+        visited[ln] = True
+    assert torch.equal(visited, enter)
+    monkeypatch.setattr(T_wk, "_frame_box_hit",
+                        lambda pack, o, inv, t_best: t_best > 0)
+    without = T_wk.wide_closest_hit_reference(pack, *args)
+    for a, b in zip(with_exit, without):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, T_wk.wide_any_hit_reference(pack, *args))
+    bf = T_int.closest_triangle_hit(*args, torch.from_numpy(v), torch.from_numpy(t))
+    assert torch.equal(with_exit.hit, bf.hit)
+    assert int(bf.hit.sum()) > 0
 
 
 def test_wrapper_refuses_bad_inputs():
