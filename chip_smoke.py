@@ -19,7 +19,8 @@ the CPU or to a plain version:
               dead lanes, t_max cut short and the shared-edge ray set; its
               time (kernel ms: torch.profiler device time; wrapper ms: CUDA
               events around the call), the plain version's time and the
-              card's bound for the same work (3a brute force, 3b the width-8
+              card's bound for the same work (3a brute force, closest hit
+              and the any hit on the Cornell path's shadow rays, 3b the width-8
               BVH walks on the mesh path's camera, bounce and shadow rays
               and on 1M rays that enter the blob's tree, closest and any
               hit, 3c the binary threaded BVH walks on the same rays, with a
@@ -53,7 +54,8 @@ the CPU or to a plain version:
               against the reference renderer's three Cornell goldens
 
 Launch counts are set to 0 just before each main path is driven and read
-just after.  Every phase prints one JSON object on a line of its own.  The
+just after; so are the calls of the brute-force casts' plain versions, which
+must stay 0 on the card.  Every phase prints one JSON object on a line of its own.  The
 line before the last is the {"kernels": [...]} record, the last line is
 {"ok": true, "device": {...}}.
 """
@@ -149,8 +151,8 @@ def time_cuda(fn, reps, flush=None):
 
 
 # the names of the hand-written kernels in torch.profiler's CUDA events
-KERNEL_NAMES = ("closest_hit_kernel", "wide_triage_kernel", "wide_bvh_kernel",
-                "packet_bvh_kernel")
+KERNEL_NAMES = ("closest_hit_kernel", "brute_any_hit_kernel",
+                "wide_triage_kernel", "wide_bvh_kernel", "packet_bvh_kernel")
 
 
 def device_ms(fn, reps, flush=None, names=KERNEL_NAMES):
@@ -224,9 +226,13 @@ def bound(bytes_moved, ops):
 def main_path_rays(dev):
     """1M rays of the kind the main path casts at the Cornell box: 500k
     camera rays (2 spp) and the 500k cosine-fanned bounce rays that leave
-    the walls they hit.  Camera rays that escape give dead lanes."""
+    the walls they hit.  Camera rays that escape give dead lanes.  Also the
+    main path's shadow rays from the hits of both (1M): toward a light point
+    sampled as the bounce loop samples it, t_max from the sample, dead where
+    nothing was hit or the sample has pdf 0.  Returns (scene, o, d, alive,
+    (shadow o, d, t_max))."""
     from gnxraytracer_tpu_torch.constants import INFINITY
-    from gnxraytracer_tpu_torch.models import bxdf
+    from gnxraytracer_tpu_torch.models import bxdf, lights
     from gnxraytracer_tpu_torch.models.integrators import path
     from gnxraytracer_tpu_torch.ops import samplers, trace
     from gnxraytracer_tpu_torch.scene import camera, presets
@@ -251,7 +257,19 @@ def main_path_rays(dev):
     rays_o = torch.cat([o, o2]).contiguous()
     rays_d = torch.cat([d, d2]).contiguous()
     alive = torch.cat([torch.ones_like(hit.hit), hit.hit])
-    return scene, rays_o, rays_d, alive
+
+    hit2 = trace.scene_intersect(scene, cfg, o2, d2,
+                                 torch.where(hit.hit, INFINITY, 0.0))
+    shadow = []
+    for h, itx in ((hit, it), (hit2, trace.make_interaction(scene, cfg, o2,
+                                                            d2, hit2))):
+        li, _ = path._choose_light(scene, cfg, ub[:, 0], itx.p)
+        ls = lights.sample_li(scene, cfg, li, itx.p, ub[:, 1:3])
+        so, sd, st = trace.shadow_ray(itx, ls.target, ls.is_infinite)
+        shadow.append((so, sd, torch.where(h.hit & (ls.pdf > 0), st, 0.0)))
+    shadow = tuple(torch.cat([a, b]).to(torch.float32).contiguous()
+                   for a, b in zip(*shadow))
+    return scene, rays_o, rays_d, alive, shadow
 
 
 def soup(n_tris, n_rays, dev, seed=0):
@@ -315,7 +333,7 @@ def phase_kernels(dev):
     from gnxraytracer_tpu_torch.constants import INFINITY
     from gnxraytracer_tpu_torch.kernels import closest_hit as ch
 
-    scene, o, d, alive = main_path_rays(dev)
+    scene, o, d, alive, shadow = main_path_rays(dev)
     soa = ch.tri_soa_from_mesh(scene.geom.vertices, scene.geom.triangles)
     n, n_tri = o.shape[0], soa.shape[0]
     check(n == 2 * WIDTH * HEIGHT * 2 and n_tri == 12, "unexpected shapes")
@@ -358,6 +376,35 @@ def phase_kernels(dev):
         "hit": "identical", "tri": "identical", "t_rtol": T_RTOL,
         "b_atol": B_ATOL}, "cases": cases})
 
+    # the any-hit kernel: the main path's own shadow rays, the same soups
+    # and the shared edge; occlusion identical on every lane
+    any_cases = []
+    for label, (ao, ad, at, asoa), need in (
+            ("cornell shadow rays", (*shadow, soa), True),
+            ("soup", (s_o, s_d, s_t, s_soa), True),
+            ("soup-3-tiles", (b_o, b_d, b_t, b_soa), True),
+            ("shared-edge", (e_o, e_d, e_t, e_soa), True)):
+        launches0 = ch.any_launch_count
+        occ = ch.any_hit(ao, ad, at, asoa)
+        torch.cuda.synchronize()
+        check(ch.any_launch_count == launches0 + 1,
+              "the any-hit wrapper did not count its launch")
+        ref_occ = ch.any_hit_reference(ao, ad, at, asoa)
+        check(torch.equal(occ, ref_occ), f"any hit, {label}: occ differs on "
+              f"{int((occ != ref_occ).sum())} lanes")
+        check(not bool(occ[at <= 0].any()),
+              f"any hit, {label}: a dead lane is occluded")
+        check(not need or bool(occ.any()), f"any hit, {label}: no ray is "
+              "occluded")
+        any_cases.append(dict(case=label, n_rays=ao.shape[0],
+                              n_tris=asoa.shape[0], max_abs_err=0.0,
+                              live_fraction=float((at > 0).float().mean()),
+                              occluded_fraction=float(occ.float().mean())))
+    check(bool(ch.any_hit(e_o, e_d, e_t, e_soa).all()),
+          "any hit: a ray leaked through the shared edge")
+    emit({"phase": "any_hit_kernel_vs_plain", "tolerance": {
+        "occ": "identical"}, "cases": any_cases})
+
     # times at the main path's shape (bounces 0-4: 1M lanes x 12 triangles),
     # every lane alive, cold L2
     t_all = torch.full((n,), INFINITY, dtype=torch.float32, device=dev)
@@ -373,7 +420,7 @@ def phase_kernels(dev):
     n_active = int((t_all > 0).sum())
     bound_ms, bound_by, bytes_ms, ops_ms = bound(
         n * (28 + 21) + 36 * n_tri, n_active * n_tri * OPS_PER_PAIR)
-    return ch, dict(
+    closest = dict(
         name="closest_hit", route="cuda",
         source="gnxraytracer_tpu_torch/csrc/closest_hit.cu",
         replaces="gnxraytracer_tpu/ops/pallas_intersect.py:33",
@@ -385,6 +432,39 @@ def phase_kernels(dev):
         library_ms=None,  # no single PyTorch call computes this function
         shape={"n_rays": n, "n_tris": n_tri}, bytes_ms=bytes_ms, ops_ms=ops_ms,
         wrapper_ms_no_sort=wrapper_ms, ms_tail_125k_rays=ms_tail)
+
+    # the any hit on the main path's shadow rays as they come (dead lanes
+    # included), and kernel 1 on the same rays
+    so, sd, st = shadow
+    a_wrapper_ms = time_cuda(lambda: ch.any_hit(so, sd, st, soa), 30, flush)
+    a_ms = device_ms(lambda: ch.any_hit(so, sd, st, soa), 30, flush)
+    a_plain_ms = time_cuda(lambda: ch.any_hit_reference(so, sd, st, soa), 3,
+                           flush)
+    closest_same_ms = device_ms(lambda: ch.closest_hit(so, sd, st, soa), 30,
+                                flush)
+    stats = {}
+    ch.any_hit_reference(so, sd, st, soa, stats=stats)
+    pairs = stats["pairs"]
+    a_bound_ms, a_bound_by, a_bytes_ms, a_ops_ms = bound(
+        so.shape[0] * (28 + 1) + 36 * n_tri, pairs * OPS_PER_PAIR)
+    any_hit = dict(
+        name="brute_any_hit", route="cuda",
+        source="gnxraytracer_tpu_torch/csrc/closest_hit.cu",
+        # no TPU kernel: the JAX package casts it with XLA code
+        replaces="gnxraytracer_tpu/ops/intersect.py:344",
+        replaces_note="no TPU counterpart: XLA code in the JAX package "
+                      "(intersect.any_triangle_hit)",
+        launches=None, max_abs_err=0.0,
+        ms=a_ms if a_ms is not None else a_wrapper_ms,
+        ms_source="torch.profiler device time" if a_ms is not None
+        else "CUDA events around the wrapper",
+        plain_ms=a_plain_ms, bound_ms=a_bound_ms, bound_by=a_bound_by,
+        library_ms=None,  # no single PyTorch call computes this function
+        shape={"n_rays": so.shape[0], "n_tris": n_tri,
+               "live_lanes": int((st > 0).sum()), "pairs_tested": pairs},
+        bytes_ms=a_bytes_ms, ops_ms=a_ops_ms, wrapper_ms_no_sort=a_wrapper_ms,
+        closest_hit_ms_same_rays=closest_same_ms)
+    return ch, closest, any_hit
 
 
 # ---------------------------------------------------------------------------
@@ -906,10 +986,35 @@ def main_path_setup(dev):
     return scene, cam, cfg, samplers.make_sobol_sampler(SPP, device=dev)
 
 
+# calls of the brute-force casts' plain versions (kernels/closest_hit.py;
+# the plain casts of ops/intersect.py call them too), counted from
+# count_plain_calls on: a main path on the card makes none
+PLAIN_CALLS = {"closest_hit_reference": 0, "any_hit_reference": 0}
+
+
+def count_plain_calls(ch):
+    for name in PLAIN_CALLS:
+        def counted(*a, _fn=getattr(ch, name), _name=name, **kw):
+            PLAIN_CALLS[_name] += 1
+            return _fn(*a, **kw)
+        setattr(ch, name, counted)
+
+
 def reset_counts(ch, wb, pk):
     ch.reset_launch_count()
     wb.reset_launch_counts()
     pk.reset_launch_counts()
+    for name in PLAIN_CALLS:
+        PLAIN_CALLS[name] = 0
+
+
+def brute_counts(ch):
+    return (ch.launch_count, ch.any_launch_count)
+
+
+def check_no_plain_brute(what):
+    check(not any(PLAIN_CALLS.values()),
+          f"{what}: a brute-force cast took its plain version {PLAIN_CALLS}")
 
 
 def packet_counts(pk):
@@ -936,7 +1041,8 @@ def binary_walk():
 
 
 def phase_main_path(dev, ch, wb, pk):
-    """The Cornell main path.  Returns the closest_hit kernel's launches."""
+    """The Cornell main path.  Returns the launches of the brute-force
+    kernels (closest, any hit)."""
     from gnxraytracer_tpu_torch import cli
     from gnxraytracer_tpu_torch.models.integrators import path
 
@@ -954,13 +1060,15 @@ def phase_main_path(dev, ch, wb, pk):
     img = path.render(scene, cam, smp, cfg)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = ch.launch_count
+    launches = brute_counts(ch)
     chunks = SPP // SPP_CHUNK
-    casts = chunks * (MAX_DEPTH + 1)  # one closest-hit cast per bounce
-    check(launches == casts,
-          f"kernel launches {launches} != closest-hit casts {casts}")
+    # one closest-hit and one shadow cast per bounce
+    casts = chunks * (MAX_DEPTH + 1)
+    check(launches == (casts, casts),
+          f"kernel launches {launches} != casts {(casts, casts)}")
     check(wide_counts(wb) == (0, 0) and packet_counts(pk) == (0, 0),
           "the Cornell path launched a BVH kernel")
+    check_no_plain_brute("cornell path.render")
     check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {img.shape}")
     check(bool(torch.isfinite(img).all()), "the image is not finite")
     mean = float(img.mean())
@@ -969,26 +1077,33 @@ def phase_main_path(dev, ch, wb, pk):
           "width": WIDTH,
           "height": HEIGHT, "max_depth": MAX_DEPTH, "spp": SPP,
           "lanes_per_chunk": lanes, "chunks": chunks,
-          "kernel_launches": launches, "closest_hit_casts": casts,
+          "kernel_launches": {"closest_hit": launches[0],
+                              "brute_any_hit": launches[1]},
+          "closest_hit_casts": casts, "shadow_casts": casts,
           "rays_per_path": rays_per_path, "ms_per_chunk": wall / chunks * 1e3,
           "Mpaths_per_s": WIDTH * HEIGHT * SPP / wall / 1e6,
           "image_mean": mean,
           "peak_device_MiB": torch.cuda.max_memory_allocated() / 2 ** 20})
 
     # the CLI a user would call (its defaults: 500x500, depth 5); on a CUDA
-    # device it turns the kernel on itself
+    # device it turns the kernels on itself
+    reset_counts(ch, wb, pk)
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "cli.npy")
         cli.main(["render", "--preset", "cornell", "--sampler", "sobol",
                   "--fast-mis", "--spp", "4", "--out-npy", out])
         cli_img = np.load(out)
-    cli_launches = ch.launch_count - launches
-    check(cli_launches == 6, f"CLI: {cli_launches} kernel launches, expected 6")
+    cli_launches = brute_counts(ch)
+    check(cli_launches == (6, 6),
+          f"CLI: {cli_launches} kernel launches, expected (6, 6)")
+    check_no_plain_brute("cornell cli render")
     check(cli_img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(cli_img).all()
           and cli_img.mean() > 0.05, "CLI: bad image")
     emit({"phase": "main_path", "scene": "cornell", "entry": "cli render",
-          "kernel_launches": cli_launches, "image_mean": float(cli_img.mean())})
-    return ch.launch_count
+          "kernel_launches": {"closest_hit": cli_launches[0],
+                              "brute_any_hit": cli_launches[1]},
+          "image_mean": float(cli_img.mean())})
+    return tuple(a + b for a, b in zip(launches, cli_launches))
 
 
 @contextlib.contextmanager
@@ -1045,7 +1160,11 @@ def phase_mesh_path(dev, ch, wb, pk, setup, tmp):
     check(per_chunk == (MAX_DEPTH + 1, MAX_DEPTH), f"cast counts {per_chunk}")
     want = (chunks * per_chunk[0], chunks * per_chunk[1])
     check(launches == want, f"wide kernel launches {launches} != casts {want}")
-    check(ch.launch_count == 0, "the mesh path launched the brute-force kernel")
+    # every BVH cast brute-forces the floor, kept out of the tree, first
+    check(cfg.n_big > 0, "the mesh scene keeps no triangle out of its tree")
+    brute = brute_counts(ch)
+    check(brute == want, f"brute-force kernel launches {brute} != casts {want}")
+    check_no_plain_brute("mesh path.render")
     check(packet_counts(pk) == (0, 0),
           "the mesh path launched a binary-BVH kernel without being asked to")
     check(tuple(img.shape) == (HEIGHT, WIDTH, 3), f"image shape {img.shape}")
@@ -1074,7 +1193,9 @@ def phase_mesh_path(dev, ch, wb, pk, setup, tmp):
           "lanes_per_chunk": lanes, "chunks": chunks,
           "bvh_build_s": build_s,
           "kernel_launches": {"wide_closest_hit": launches[0],
-                              "wide_any_hit": launches[1]},
+                              "wide_any_hit": launches[1],
+                              "closest_hit": brute[0],
+                              "brute_any_hit": brute[1]},
           "casts_per_chunk": {"closest": per_chunk[0], "shadow": per_chunk[1]},
           "rays_per_path": rays_per_path, "ms_per_chunk": wall / chunks * 1e3,
           "Mpaths_per_s": WIDTH * HEIGHT * SPP / wall / 1e6,
@@ -1094,15 +1215,20 @@ def phase_mesh_path(dev, ch, wb, pk, setup, tmp):
         cli_img = np.load(out)
     cli_launches = wide_counts(wb)
     # the CLI's configuration runs the classic loop: one closest-hit and one
-    # shadow cast per bounce
-    check(cli_launches == (MAX_DEPTH + 1, MAX_DEPTH + 1),
-          f"CLI: wide kernel launches {cli_launches}")
+    # shadow cast per bounce, each with its floor cast
+    check(cli_launches == (MAX_DEPTH + 1, MAX_DEPTH + 1)
+          and brute_counts(ch) == cli_launches,
+          f"CLI: wide kernel launches {cli_launches}, brute-force "
+          f"{brute_counts(ch)}")
+    check_no_plain_brute("mesh cli render")
     check(cli_img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(cli_img).all()
           and cli_img.mean() > 0.02, "CLI: bad mesh image")
     emit({"phase": "main_path", "scene": "envmap_mesh", "entry": "cli render",
           "environment": "skybox fallback (no HDR asset)",
           "kernel_launches": {"wide_closest_hit": cli_launches[0],
-                              "wide_any_hit": cli_launches[1]},
+                              "wide_any_hit": cli_launches[1],
+                              "closest_hit": cli_launches[0],
+                              "brute_any_hit": cli_launches[1]},
           "image_mean": float(cli_img.mean())})
 
     # kernels against the plain walk through the whole path, at 64x64: this
@@ -1121,7 +1247,7 @@ def phase_mesh_path(dev, ch, wb, pk, setup, tmp):
           "image_mean": float(img_k.mean())})
     check(bool(close.all()), "cross-check: the kernels' image differs from "
           "the plain walk's")
-    return launches, img_off
+    return launches, brute, img_off
 
 
 # ---------------------------------------------------------------------------
@@ -1144,8 +1270,11 @@ def phase_mesh_path_binary(dev, ch, wb, pk, setup, wide_chunk):
     per_chunk = path.pipelined_cast_counts(cfg, lanes)
     check(launches == per_chunk,
           f"binary kernel launches {launches} != casts {per_chunk}")
-    check(wide_counts(wb) == (0, 0) and ch.launch_count == 0,
-          "GNX_WIDE_BVH=0: the mesh chunk still launched another kernel")
+    check(wide_counts(wb) == (0, 0),
+          "GNX_WIDE_BVH=0: the mesh chunk still launched a wide kernel")
+    check(brute_counts(ch) == launches, f"GNX_WIDE_BVH=0: brute-force "
+          f"launches {brute_counts(ch)} != casts {launches}")
+    check_no_plain_brute("mesh chunk, GNX_WIDE_BVH=0")
     check(bool(torch.isfinite(img).all()), "binary walk: image not finite")
     diff = (img - wide_chunk).abs()
     rel = float(diff.mean() / wide_chunk.abs().mean())
@@ -1154,7 +1283,9 @@ def phase_mesh_path_binary(dev, ch, wb, pk, setup, wide_chunk):
           "lanes_per_chunk": lanes,
           "kernel_launches": {"packet_closest_hit": launches[0],
                               "packet_any_hit": launches[1],
-                              "wide_closest_hit": 0, "wide_any_hit": 0},
+                              "wide_closest_hit": 0, "wide_any_hit": 0,
+                              "closest_hit": launches[0],
+                              "brute_any_hit": launches[1]},
           "rays_per_path": float(n_rays) / lanes, "ms_per_chunk": ms,
           "Mpaths_per_s": lanes / ms / 1e3,
           "image_mean": float(img.mean()) / SPP_CHUNK,
@@ -1205,7 +1336,11 @@ def render_record(label, entry, cfg, ms, peak, chunks, mean, launches):
 
 
 def all_counts(ch, wb, pk):
+    """Every kernel's launches since the last reset_counts; fails if a
+    brute-force cast took its plain version meanwhile."""
+    check_no_plain_brute("phase 8")
     return {"closest_hit": ch.launch_count,
+            "brute_any_hit": ch.any_launch_count,
             "wide_closest_hit": wb.closest_launch_count,
             "wide_any_hit": wb.any_launch_count,
             "packet_closest_hit": pk.closest_launch_count,
@@ -1352,9 +1487,12 @@ def phase_slice3(dev, ch, wb, pk):
                                          reset=reset)
     counts = all_counts(ch, wb, pk)
     # no specular material is assigned: one depth step a chunk, its
-    # closest-hit cast through kernel 1
-    check(counts["closest_hit"] == chunks and sum(counts.values()) == chunks,
-          f"whitted/cornell: launches {counts}")
+    # closest-hit cast through kernel 1 and one shadow cast a light (the
+    # skybox is skipped) through the any-hit kernel
+    lit = sum(k != 5 for k in cfg.light_kind_seq)
+    expect = {"closest_hit": chunks, "brute_any_hit": chunks * lit}
+    check(all(counts[k] == expect.get(k, 0) for k in counts),
+          f"whitted/cornell: launches {counts}, expected {expect}")
     emit(render_record("cornell", "whitted.render", cfg, ms, peak, chunks,
                        float(img.mean()), counts))
 
@@ -1375,8 +1513,10 @@ def phase_slice3(dev, ch, wb, pk):
         counts = all_counts(ch, wb, pk)
         frames = [json.loads(l) for l in log.getvalue().splitlines()
                   if l.startswith("{") and "frame_time_s" in l]
-        # the preset's mesh is matte: one depth step a chunk, 2 chunks
-        expect = {f"{want}_closest_hit": 2, f"{want}_any_hit": 2 * lights}
+        # the preset's mesh is matte: one depth step a chunk, 2 chunks; each
+        # BVH cast brute-forces the walls, kept out of the tree, first
+        expect = {f"{want}_closest_hit": 2, f"{want}_any_hit": 2 * lights,
+                  "closest_hit": 2, "brute_any_hit": 2 * lights}
         check(all(counts[k] == (expect.get(k, 0)) for k in counts),
               f"CLI whitted/cornell-mesh ({label}): launches {counts}")
         check(cli_img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(cli_img).all()
@@ -1415,7 +1555,9 @@ def phase_slice3(dev, ch, wb, pk):
                                                      reset=reset)
             counts = all_counts(ch, wb, pk)
             expect = {f"{want}_closest_hit": per_chunk[0] * chunks,
-                      f"{want}_any_hit": per_chunk[1] * chunks}
+                      f"{want}_any_hit": per_chunk[1] * chunks,
+                      "closest_hit": per_chunk[0] * chunks,
+                      "brute_any_hit": per_chunk[1] * chunks}
             check(all(counts[k] == expect.get(k, 0) for k in counts),
                   f"{name} mirror mesh ({label}): launches {counts}, "
                   f"expected {expect}")
@@ -1465,11 +1607,12 @@ def phase_slice3(dev, ch, wb, pk):
         img, ms, peak, chunks = timed_render(direct, scene, cam, smp, cfg,
                                              strategy, reset=reset)
         counts = all_counts(ch, wb, pk)
-        # per depth: the cast of the depth, and estimate_direct's BSDF-side
-        # cast for each light sampled
-        want = WHITTED_DEPTH * (1 + lights_sampled) * chunks
-        check(counts["closest_hit"] == want and sum(counts.values()) == want,
-              f"direct({strategy}): launches {counts}, expected {want}")
+        # per depth: the cast of the depth, and for each light sampled
+        # estimate_direct's shadow cast and BSDF-side cast
+        expect = {"closest_hit": WHITTED_DEPTH * (1 + lights_sampled) * chunks,
+                  "brute_any_hit": WHITTED_DEPTH * lights_sampled * chunks}
+        check(all(counts[k] == expect.get(k, 0) for k in counts),
+              f"direct({strategy}): launches {counts}, expected {expect}")
         emit(render_record("cornell", f"direct.render(strategy={strategy!r})",
                            cfg, ms, peak, chunks, float(img.mean()), counts))
 
@@ -1546,16 +1689,19 @@ def phase_profile(dev, mesh):
 
     scene, cam, cfg, smp = main_path_setup(dev)
     profile_chunk("cornell", scene, cam, cfg, smp)
-    _, o, d, alive = main_path_rays(dev)
+    _, o, d, alive, _ = main_path_rays(dev)
     t_all = torch.full((o.shape[0],), INFINITY, dtype=torch.float32, device=dev)
-    any_ms = time_cuda(lambda: trace.scene_occluded(scene, cfg, o, d, t_all), 3)
-    shadow_ops = count_dispatched_ops(
-        lambda: trace.scene_occluded(scene, cfg, o, d, t_all))
+    plain = cfg._replace(use_pallas=False)
+    shadow_ms, shadow_ops = {}, {}
+    for label, c in (("kernel", cfg), ("plain", plain)):
+        cast = lambda: trace.scene_occluded(scene, c, o, d, t_all)
+        shadow_ms[label] = time_cuda(cast, 3)
+        shadow_ops[label] = count_dispatched_ops(cast)
     zeros = torch.zeros_like(alive, dtype=torch.int32)
     dims_ops = count_dispatched_ops(
         lambda: samplers.sample_bounce_dims(smp, zeros, zeros, 5, 8, 85))
     emit({"phase": "profile", "scene": "cornell, pieces alone",
-          "plain_any_hit_1M_rays_ms": any_ms,
+          "shadow_cast_1M_rays_ms": shadow_ms,
           "dispatched_ops": {"one_shadow_cast": shadow_ops,
                              "one_bounce_sampler_dims": dims_ops}})
     profile_chunk("envmap_mesh", *mesh[:4])
@@ -1693,7 +1839,8 @@ def main():
                               "entries": ptxas_summary(build.build_log[n]["ptxas"])}
                           for n in names}})
 
-        ch, record = phase_kernels(dev)
+        ch, record, rec_brute_any = phase_kernels(dev)
+        count_plain_calls(ch)
         with tempfile.TemporaryDirectory() as tmp:
             mesh = mesh_setup(dev, tmp)
             rays = mesh_rays(dev, *mesh[:3])
@@ -1702,12 +1849,14 @@ def main():
             pk, rec_pclosest, rec_pany = phase_packet_kernels(
                 dev, mesh[0], mesh[2], rays, wide_times, wide_visits)
             del rays
-            record["launches"] = phase_main_path(dev, ch, wb, pk)
-            (rec_closest["launches"], rec_any["launches"]), wide_chunk = \
+            record["launches"], rec_brute_any["launches"] = \
+                phase_main_path(dev, ch, wb, pk)
+            (rec_closest["launches"], rec_any["launches"]), _, wide_chunk = \
                 phase_mesh_path(dev, ch, wb, pk, mesh, tmp)
             rec_pclosest["launches"], rec_pany["launches"] = \
                 phase_mesh_path_binary(dev, ch, wb, pk, mesh, wide_chunk)
-            records = [record, rec_closest, rec_any, rec_pclosest, rec_pany]
+            records = [record, rec_brute_any, rec_closest, rec_any,
+                       rec_pclosest, rec_pany]
             for r in records:
                 check(r["launches"] > 0,
                       f"a main path never launched the kernel {r['name']}")

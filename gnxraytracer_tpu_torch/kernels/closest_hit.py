@@ -1,12 +1,15 @@
-"""Brute-force watertight closest hit: the wrapper of the CUDA kernel
-csrc/closest_hit.cu, and the plain PyTorch version beside it.
+"""Brute-force watertight casts: the wrappers of the two CUDA kernels of
+csrc/closest_hit.cu, closest hit and any hit, and the plain PyTorch version
+beside each.
 
-The kernel replaces the JAX package's TPU kernel
-ops/pallas_intersect.py::_kernel (see the note in the .cu file for what
-bounds it on an H100 and what the design does about it).  On a CUDA tensor
-``closest_hit`` launches the kernel or raises; on a CPU tensor it runs
-``closest_hit_reference``, which is also what the kernel is held against
-on the card.
+The closest-hit kernel replaces the JAX package's TPU kernel
+ops/pallas_intersect.py::_kernel; the any-hit kernel is the same template
+for shadow rays, where the JAX package runs XLA code
+(intersect.any_triangle_hit).  See the note in the .cu file for what bounds
+them on an H100 and what the design does about it.  On a CUDA tensor
+``closest_hit`` / ``any_hit`` launch their kernel or raise; on a CPU tensor
+they run ``closest_hit_reference`` / ``any_hit_reference``, which are also
+what the kernels are held against on the card.
 """
 
 import ctypes
@@ -17,13 +20,15 @@ from ..constants import INFINITY
 from ..ops.intersect import TriHit, _permute_shear, _watertight_one
 from . import build
 
-# launches of the CUDA kernel (and nothing else) since the last reset
-launch_count = 0
+# launches of each CUDA kernel (and nothing else) since the last reset
+launch_count = 0  # closest hit
+any_launch_count = 0
 
 
 def reset_launch_count():
-    global launch_count
+    global launch_count, any_launch_count
     launch_count = 0
+    any_launch_count = 0
 
 
 def tri_soa_from_mesh(vertices, triangles):
@@ -56,19 +61,41 @@ def closest_hit_reference(o, d, t_max, tri_soa):
                   b=best_b)
 
 
-_fn = None
+def any_hit_reference(o, d, t_max, tri_soa, stats=None):
+    """Plain PyTorch version of the any hit (shadow ray, IntersectP
+    semantics): a loop over triangles of flat (N,) tensor math; a lane is
+    occluded when any triangle's full test is valid with t <= t_max.  Any
+    device.  With a dict `stats`, adds to stats["pairs"] the ray-triangle
+    pairs the kernel tests: a lane with t_max > 0 up to its first valid
+    triangle."""
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    (m0, m1), (sx, sy, sz) = _permute_shear(d)
+    occ = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
+    for ti in range(tri_soa.shape[0]):
+        if stats is not None:
+            stats["pairs"] = stats.get("pairs", 0) + int(
+                (~(t_max <= 0) & ~occ).sum())
+        tv = tri_soa[ti]
+        valid, _, _, _, _ = _watertight_one(
+            ox, oy, oz, m0, m1, sx, sy, sz, t_max, tv[0:3], tv[3:6], tv[6:9])
+        occ = occ | valid
+    return occ
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = build.load("closest_hit").gnx_closest_hit
+_fns = {}
+
+
+def _kernel_fn(entry):
+    """ctypes handle of an entry point of csrc/closest_hit.cu."""
+    fn = _fns.get(entry)
+    if fn is None:
+        fn = getattr(build.load("closest_hit"), entry)
         p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int, p, p, p, p, p, p, p,
-                       ctypes.c_longlong, p]
+        outs = [p] * (4 if entry == "gnx_closest_hit" else 1)
+        fn.argtypes = [p, ctypes.c_int, p, p, p, *outs, ctypes.c_longlong, p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[entry] = fn
+    return fn
 
 
 def _check(name, x, shape, dtype, device):
@@ -84,12 +111,8 @@ def _check(name, x, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def closest_hit(o, d, t_max, tri_soa):
-    """Closest hit of N rays against the (T,9) triangle table.
-
-    o, d: (N,3) float32; t_max: (N,) float32; tri_soa: (T,9) float32, T >= 1;
-    all contiguous and on one device.  Returns TriHit(hit (N,) bool,
-    t (N,) f32 — INFINITY on a miss, tri (N,) i32, b (N,3) f32)."""
+def _check_cast(name, o, d, t_max, tri_soa):
+    """The inputs both wrappers take; returns the device type."""
     n = o.shape[0]
     dev = o.device
     f32 = torch.float32
@@ -99,12 +122,22 @@ def closest_hit(o, d, t_max, tri_soa):
     if tri_soa.ndim != 2 or tri_soa.shape[0] < 1:
         raise ValueError("tri_soa must be (T,9) with T >= 1")
     _check("tri_soa", tri_soa, (tri_soa.shape[0], 9), f32, dev)
-    if dev.type == "cpu":
-        return closest_hit_reference(o, d, t_max, tri_soa)
-    if dev.type != "cuda":
-        raise ValueError(f"closest_hit runs on cuda or cpu tensors, not {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {dev}")
+    return dev.type
 
-    fn = _kernel_fn()
+
+def closest_hit(o, d, t_max, tri_soa):
+    """Closest hit of N rays against the (T,9) triangle table.
+
+    o, d: (N,3) float32; t_max: (N,) float32; tri_soa: (T,9) float32, T >= 1;
+    all contiguous and on one device.  Returns TriHit(hit (N,) bool,
+    t (N,) f32 — INFINITY on a miss, tri (N,) i32, b (N,3) f32)."""
+    if _check_cast("closest_hit", o, d, t_max, tri_soa) == "cpu":
+        return closest_hit_reference(o, d, t_max, tri_soa)
+
+    n, dev, f32 = o.shape[0], o.device, torch.float32
+    fn = _kernel_fn("gnx_closest_hit")
     t_out = torch.empty((n,), dtype=f32, device=dev)
     tri_out = torch.empty((n,), dtype=torch.int32, device=dev)
     b_out = torch.empty((n, 3), dtype=f32, device=dev)
@@ -122,3 +155,26 @@ def closest_hit(o, d, t_max, tri_soa):
     global launch_count
     launch_count += 1
     return TriHit(hit=hit_out, t=t_out, tri=tri_out, b=b_out)
+
+
+def any_hit(o, d, t_max, tri_soa):
+    """Any hit (shadow rays) of N rays against the (T,9) triangle table:
+    (N,) bool, True where some triangle is hit with 0 < t <= t_max.  Inputs
+    as closest_hit's."""
+    if _check_cast("any_hit", o, d, t_max, tri_soa) == "cpu":
+        return any_hit_reference(o, d, t_max, tri_soa)
+
+    n, dev = o.shape[0], o.device
+    fn = _kernel_fn("gnx_brute_any_hit")
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(tri_soa.data_ptr(), tri_soa.shape[0], o.data_ptr(),
+                 d.data_ptr(), t_max.data_ptr(), occ.data_ptr(), n, stream)
+    if err != 0:
+        raise RuntimeError(f"any_hit kernel launch failed: cudaError {err}")
+    global any_launch_count
+    any_launch_count += 1
+    return occ

@@ -138,19 +138,13 @@ closest_triangle_hit_small = closest_triangle_hit
 
 
 def any_triangle_hit(o, d, t_max, vertices, triangles):
-    """Brute-force any-hit (shadow ray, IntersectP semantics)."""
-    n = o.shape[0]
-    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
-    (m0, m1), (sx, sy, sz) = _permute_shear(d)
-    t_max = _lane_t_max(t_max, n, o.device)
-    pts = vertices[triangles.long()]  # (T,3,3)
-    occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
-    for ti in range(pts.shape[0]):
-        valid, _, _, _, _ = _watertight_one(
-            ox, oy, oz, m0, m1, sx, sy, sz, t_max,
-            pts[ti, 0], pts[ti, 1], pts[ti, 2])
-        occ = occ | valid
-    return occ
+    """Brute-force any-hit (shadow ray, IntersectP semantics), plain
+    PyTorch.  Arguments as closest_triangle_hit's."""
+    from ..kernels.closest_hit import any_hit_reference, tri_soa_from_mesh
+
+    return any_hit_reference(
+        o, d, _lane_t_max(t_max, o.shape[0], o.device),
+        tri_soa_from_mesh(vertices, triangles))
 
 
 # ---------------------------------------------------------------------------

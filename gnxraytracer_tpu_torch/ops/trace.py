@@ -6,7 +6,10 @@ gathers positions/normals/uv and builds the shading frame.  With
 cfg.use_bvh the triangle casts walk the scene's width-8 BVH table
 (kernels/wide_bvh.py) or its binary threaded one (kernels/packet_bvh.py);
 the per-lane stack walks and instancing of the JAX package are not ported
-yet and raise.
+yet and raise.  The brute-force casts (every triangle of a scene without a
+BVH, the big triangles kept out of one) go through the two kernels of
+kernels/closest_hit.py, closest and any hit, where the configuration asks
+for kernels.
 The JAX package fetches per-triangle attributes with a one-hot matmul (a
 TPU device); plain index gathers give the same values here.
 """
@@ -51,6 +54,34 @@ def _unported(cfg):
         raise NotImplementedError("instancing is not ported yet (n_inst > 0)")
 
 
+def _bvh_mode(cfg):
+    return cfg.bvh_mode if cfg.bvh_stackless else "stack"
+
+
+def _brute_force(scene, cfg, o, d, t_max, any_hit=False, tri_idx=None):
+    """Brute-force cast of the scene's triangles (or those of tri_idx): the
+    closest hit (TriHit) or, with any_hit, occlusion ((N,) bool).  Through
+    the hand-written kernels' wrappers (kernels/closest_hit.py: the kernel
+    on CUDA tensors, the plain version on CPU tensors) where the
+    configuration asks for kernels: cfg.use_pallas in a scene without a
+    BVH, bvh_mode "pallas" for the big triangles kept out of a BVH; else
+    the plain loops."""
+    from ..kernels import closest_hit as ch
+
+    g = scene.geom
+    tris = g.triangles if tri_idx is None else g.triangles[tri_idx.long()]
+    kernels = (_bvh_mode(cfg) == "pallas" if cfg.use_bvh
+               else getattr(cfg, "use_pallas", False))
+    if not kernels:
+        cast = (intersect.any_triangle_hit if any_hit
+                else intersect.closest_triangle_hit)
+        return cast(o, d, t_max, g.vertices, tris)
+    cast = ch.any_hit if any_hit else ch.closest_hit
+    t_max = intersect._lane_t_max(t_max, o.shape[0], o.device)
+    return cast(o.contiguous(), d.contiguous(), t_max.contiguous(),
+                ch.tri_soa_from_mesh(g.vertices, tris))
+
+
 def _bvh_casts(scene, cfg):
     """(closest, any) cast functions (o, d, t_max) -> result over the scene's
     BVH for cfg.bvh_mode: "pallas" is the hand-written kernels' wrappers
@@ -63,7 +94,7 @@ def _bvh_casts(scene, cfg):
     if scene.bvh is None:
         raise ValueError("cfg.use_bvh needs a scene built with bvh=True")
 
-    mode = cfg.bvh_mode if cfg.bvh_stackless else "stack"
+    mode = _bvh_mode(cfg)
     if mode in ("stack", "stackless"):
         raise NotImplementedError(
             f"the per-lane BVH walk (bvh_mode={mode!r}) is not ported yet; "
@@ -100,9 +131,8 @@ def _merge_tri_hit(th, prim_of, t_best, hit, kind, prim, bary):
 def scene_intersect(scene, cfg, o, d, t_max):
     """Closest hit across triangles and spheres.  With cfg.use_bvh the
     triangle cast walks the BVH (a few huge triangles kept out of the tree
-    are brute-forced first, and their hit t caps the walk); else with
-    cfg.use_pallas the brute-force cast goes through the hand-written
-    kernel's wrapper (kernels/closest_hit.py)."""
+    are brute-forced first, and their hit t caps the walk); else the
+    triangles are brute-forced (_brute_force says through what)."""
     _unported(cfg)
     n = o.shape[0]
     dev = o.device
@@ -117,22 +147,13 @@ def scene_intersect(scene, cfg, o, d, t_max):
         if cfg.use_bvh:
             if getattr(cfg, "n_big", 0) > 0:
                 big = scene.big_tri_idx
-                bh = intersect.closest_triangle_hit(
-                    o, d, state[0], scene.geom.vertices,
-                    scene.geom.triangles[big.long()])
+                bh = _brute_force(scene, cfg, o, d, state[0], tri_idx=big)
                 state = _merge_tri_hit(bh, lambda i: big[i.long()], *state)
             closest, _ = _bvh_casts(scene, cfg)
             th = closest(o.contiguous(), d.contiguous(),
                          state[0].contiguous())
-        elif getattr(cfg, "use_pallas", False):
-            from ..kernels.closest_hit import closest_hit, tri_soa_from_mesh
-
-            soa = tri_soa_from_mesh(scene.geom.vertices, scene.geom.triangles)
-            th = closest_hit(o.contiguous(), d.contiguous(),
-                             state[0].contiguous(), soa)
         else:
-            th = intersect.closest_triangle_hit(
-                o, d, state[0], scene.geom.vertices, scene.geom.triangles)
+            th = _brute_force(scene, cfg, o, d, state[0])
         state = _merge_tri_hit(th, lambda i: i, *state)
     t_best, hit, kind, prim, bary = state
 
@@ -151,8 +172,7 @@ def scene_intersect(scene, cfg, o, d, t_max):
 def scene_occluded(scene, cfg, o, d, t_max):
     """Any-hit (shadow ray).  With cfg.use_bvh the triangle cast walks the
     BVH; lanes that a big triangle already occludes skip the walk
-    (t_max = 0).  The brute-force any-hit is plain PyTorch: it is XLA code in
-    the JAX package too, not a TPU kernel."""
+    (t_max = 0).  The brute-force casts go as in scene_intersect."""
     _unported(cfg)
     n = o.shape[0]
     occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
@@ -160,16 +180,14 @@ def scene_occluded(scene, cfg, o, d, t_max):
         if cfg.use_bvh:
             t_walk = intersect._lane_t_max(t_max, n, o.device)
             if getattr(cfg, "n_big", 0) > 0:
-                occ = occ | intersect.any_triangle_hit(
-                    o, d, t_max, scene.geom.vertices,
-                    scene.geom.triangles[scene.big_tri_idx.long()])
+                occ = occ | _brute_force(scene, cfg, o, d, t_max, any_hit=True,
+                                         tri_idx=scene.big_tri_idx)
                 t_walk = torch.where(occ, 0.0, t_walk)
             _, any_hit = _bvh_casts(scene, cfg)
             occ = occ | any_hit(o.contiguous(), d.contiguous(),
                                 t_walk.contiguous())
         else:
-            occ = occ | intersect.any_triangle_hit(
-                o, d, t_max, scene.geom.vertices, scene.geom.triangles)
+            occ = occ | _brute_force(scene, cfg, o, d, t_max, any_hit=True)
     if cfg.n_sphs > 0:
         ok, _ = intersect.ray_spheres(o, d, t_max, scene.geom.sph_center,
                                       scene.geom.sph_radius)
