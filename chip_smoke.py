@@ -299,6 +299,53 @@ def shared_edge(dev, n=500):
     return put(soa), put(o), put(d), put(np.full(n, 1e30, np.float32))
 
 
+def brute_pairs(o, d, t_max, tri_soa, any_hit):
+    """(pairs tested, pairs that enter the tail) of one brute-force cast as
+    csrc/closest_hit.cu runs it: a live lane tests every triangle (closest
+    hit) or each one up to its first valid one (any hit); a tested pair
+    enters the tail (IEEE division, delta_t, barycentrics) when its edge,
+    sign and t range tests pass against the lane's running best (closest
+    hit) or its own t_max (any hit).  Plain PyTorch, any device."""
+    from gnxraytracer_tpu_torch.ops.intersect import (
+        _edge_fn, _permute_shear, _watertight_one)
+    ox, oy, oz = o.unbind(1)
+    (m0, m1), (sx, sy, sz) = _permute_shear(d)
+
+    def permuted(q):
+        px, py, pz = q[0] - ox, q[1] - oy, q[2] - oz
+        x = torch.where(m0, py, torch.where(m1, pz, px))
+        y = torch.where(m0, pz, torch.where(m1, px, py))
+        z = torch.where(m0, px, torch.where(m1, py, pz))
+        return x + sx * z, y + sy * z, sz * z
+
+    best = t_max.clone()
+    live = ~(t_max <= 0) if any_hit else t_max > 0
+    tested = tail = 0
+    for ti in range(tri_soa.shape[0]):
+        q0, q1, q2 = tri_soa[ti].view(3, 3)
+        (x0, y0, z0), (x1, y1, z1), (x2, y2, z2) = map(permuted, (q0, q1, q2))
+        e0 = _edge_fn(x1, y1, x2, y2)
+        e1 = _edge_fn(x2, y2, x0, y0)
+        e2 = _edge_fn(x0, y0, x1, y1)
+        neg = (e0 < 0) | (e1 < 0) | (e2 < 0)
+        pos = (e0 > 0) | (e1 > 0) | (e2 > 0)
+        det = e0 + e1 + e2
+        t_scaled = e0 * z0 + e1 * z1 + e2 * z2
+        lim = best * det
+        bad = torch.where(det < 0, (t_scaled >= 0) | (t_scaled < lim),
+                          (t_scaled <= 0) | (t_scaled > lim))
+        cand = ~(neg & pos) & (det != 0) & ~bad
+        tested += int(live.sum())
+        tail += int((live & cand).sum())
+        valid, t, _, _, _ = _watertight_one(ox, oy, oz, m0, m1, sx, sy, sz,
+                                            best, q0, q1, q2)
+        if any_hit:
+            live = live & ~valid
+        else:
+            best = torch.where(valid & (t < best), t, best)
+    return tested, tail
+
+
 def compare_hits(name, got, ref, t_max, miss_b=(0.0, 0.0, 0.0),
                  need_hits=True):
     """Kernel against plain version: hit and tri identical, t within T_RTOL,
@@ -442,9 +489,7 @@ def phase_kernels(dev):
                            flush)
     closest_same_ms = device_ms(lambda: ch.closest_hit(so, sd, st, soa), 30,
                                 flush)
-    stats = {}
-    ch.any_hit_reference(so, sd, st, soa, stats=stats)
-    pairs = stats["pairs"]
+    pairs, _ = brute_pairs(so, sd, st, soa, any_hit=True)
     a_bound_ms, a_bound_by, a_bytes_ms, a_ops_ms = bound(
         so.shape[0] * (28 + 1) + 36 * n_tri, pairs * OPS_PER_PAIR)
     any_hit = dict(

