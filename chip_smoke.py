@@ -24,7 +24,8 @@ the CPU or to a plain version:
               BVH walks on the mesh path's camera, bounce and shadow rays
               and on 1M rays that enter the blob's tree, closest and any
               hit, 3c the binary threaded BVH walks on the same rays, with a
-              tree without octant links and the two-phase cast)
+              tree without octant links, the two-phase cast and rays through
+              edges shared by two leaves; the binary wrappers do not sort)
   4. cornell  path.render of the Cornell box at 500x500, depth 8, Sobol',
               spp_chunk=4 (1M lanes a chunk), fast_mis + compact_tail +
               use_pallas, 8 spp, and the CLI's render command
@@ -39,7 +40,7 @@ the CPU or to a plain version:
               renderer's image tests/golden/ref_path_cornell.npz
   7. binary   one chunk of the mesh path of phase 5 with GNX_WIDE_BVH=0: every
               BVH cast through the binary threaded-BVH kernels, none through
-              the wide ones; the image against phase 5's
+              the wide ones, no coherence sort; the image against phase 5's
   8. whitted  the Whitted, direct-lighting and faithful path integrators with
               the Halton sampler at 500x500: whitted.render of the Cornell box
               (depth 5, 2M lanes a chunk), the CLI's ``--preset cornell-mesh
@@ -49,7 +50,10 @@ the CPU or to a plain version:
               path.render(fast_mis=False), binary and wide, with the isolated
               casts of its depth-1 rays, its depth-0 shadow rays and an
               incoherent ray set through both pairs of kernels, each against
-              its plain walk, and direct.render with both strategies
+              its plain walk; the same scene's camera, bounce and shadow rays
+              through both pairs on ONE tree over all its triangles, walls
+              and light included (every camera ray hits in it); and
+              direct.render with both strategies
   9. goldens  32 spp Halton through whitted, direct and the faithful path
               against the reference renderer's three Cornell goldens
 
@@ -104,6 +108,8 @@ MESH_STAGES = ((0, 2), (1, 16), (2, 32), (4, 64))
 PLAIN_SUBSAMPLE = 100_000  # rays the plain walk takes of a 1M-ray set
 SORT_ROUNDS = 1  # rounds of (off, on, on, off) chunks in phase 5
 
+MIRROR_ID = 4  # the mirror of presets.reference_materials
+
 T_RTOL = 1e-5   # t: kernel vs plain version
 B_ATOL = 1e-5   # barycentrics: kernel vs plain version
 
@@ -152,7 +158,8 @@ def time_cuda(fn, reps, flush=None):
 
 # the names of the hand-written kernels in torch.profiler's CUDA events
 KERNEL_NAMES = ("closest_hit_kernel", "brute_any_hit_kernel",
-                "wide_triage_kernel", "wide_bvh_kernel", "packet_bvh_kernel")
+                "wide_triage_kernel", "wide_bvh_kernel",
+                "packet_triage_kernel", "packet_walk_kernel")
 
 
 def device_ms(fn, reps, flush=None, names=KERNEL_NAMES):
@@ -297,6 +304,27 @@ def shared_edge(dev, n=500):
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     put = lambda a: torch.from_numpy(a).to(dev)
     return put(soa), put(o), put(d), put(np.full(n, 1e30, np.float32))
+
+
+def quad_row(dev, n=400):
+    """Eight unit quads in a row (16 triangles, several leaves of a tree)
+    and rays aimed exactly at the shared edges x = 1..7 between them:
+    (vertices, triangles, o, d, t_max)."""
+    xs = np.arange(9, dtype=np.float32)
+    verts = np.concatenate([np.stack([xs, np.zeros(9), np.zeros(9)], -1),
+                            np.stack([xs, np.ones(9), np.zeros(9)], -1)]
+                           ).astype(np.float32)
+    tris = np.concatenate([[[i, i + 1, i + 9], [i + 1, i + 10, i + 9]]
+                           for i in range(8)]).astype(np.int32)
+    rs = np.random.RandomState(3)
+    target = np.stack([rs.randint(1, 8, n).astype(np.float32),
+                       (0.05 + 0.9 * rs.rand(n)).astype(np.float32),
+                       np.zeros(n, np.float32)], -1)
+    o = np.broadcast_to(np.asarray([4.2, 0.4, 6.0], np.float32), (n, 3)).copy()
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    put = lambda a: torch.from_numpy(a).to(dev)
+    return verts, tris, put(o), put(d), put(np.full(n, 1e30, np.float32))
 
 
 def brute_pairs(o, d, t_max, tri_soa, any_hit):
@@ -565,13 +593,11 @@ def mesh_setup(dev, tmp, width=WIDTH, height=HEIGHT, spp=SPP, **kw):
     return scene, cam, cfg, samplers.make_sobol_sampler(spp, device=dev), build_s
 
 
-def mesh_rays(dev, scene, cam, cfg):
-    """The three kinds of 1M-ray sets the mesh main path casts: camera rays
-    (4 spp), the cosine-fanned bounce rays that leave the surfaces they hit
-    (lanes whose camera ray escaped are dead, t_max = 0), and the shadow
-    rays toward environment-light samples from the same hit points; and 1M
-    rays that enter the blob's tree (entering_rays), cast closest-hit
-    ("entering") and any-hit ("entering_any")."""
+def path_rays(dev, scene, cam, cfg, light=0):
+    """The three kinds of 1M-ray sets a path chunk casts (Sobol', 4 spp):
+    camera rays, the cosine-fanned bounce rays that leave the surfaces they
+    hit (lanes whose camera ray escaped are dead, t_max = 0), and the shadow
+    rays toward samples of light `light` from the same hit points."""
     from gnxraytracer_tpu_torch.constants import INFINITY
     from gnxraytracer_tpu_torch.models import bxdf, lights
     from gnxraytracer_tpu_torch.ops import samplers, trace
@@ -594,15 +620,46 @@ def mesh_rays(dev, scene, cam, cfg):
     o2 = torch.where(hit.hit[:, None], o2, o).contiguous()
     d2 = torch.where(hit.hit[:, None], d2, d).contiguous()
     t2 = torch.where(hit.hit, INFINITY, 0.0).to(torch.float32)
-    idx = torch.zeros((n,), dtype=torch.int32, device=dev)  # the env light
+    idx = torch.full((n,), light, dtype=torch.int32, device=dev)
     ls = lights.sample_li(scene, cfg, idx, it.p, ub[:, 1:3])
     so, sd, st = trace.shadow_ray(it, ls.target, ls.is_infinite)
     st = torch.where(hit.hit & (ls.pdf > 0), st, 0.0).to(torch.float32)
-    enter = entering_rays(dev, scene.bvh.wide, n)
     return dict(camera=(o.contiguous(), d.contiguous(), t_inf),
                 bounce=(o2, d2, t2.contiguous()),
-                shadow=(so.contiguous(), sd.contiguous(), st.contiguous()),
-                entering=enter, entering_any=enter)
+                shadow=(so.contiguous(), sd.contiguous(), st.contiguous()))
+
+
+def mesh_rays(dev, scene, cam, cfg):
+    """The mesh main path's 1M-ray sets (path_rays: camera, bounce, and
+    shadow rays toward the environment light), and 1M rays that enter the
+    blob's tree (entering_rays), cast closest-hit ("entering") and any-hit
+    ("entering_any")."""
+    rays = path_rays(dev, scene, cam, cfg, light=0)  # light 0: the env light
+    enter = entering_rays(dev, scene.bvh.wide, rays["camera"][0].shape[0])
+    return dict(rays, entering=enter, entering_any=enter)
+
+
+def closed_tree_setup(dev):
+    """The mirror-mesh Cornell scene (presets.cornell_box with
+    make_test_mesh(5) as a mirror) and ONE tree over all its triangles, the
+    12 walls and the light inside it (ops/bvh.build_bvh with no subset): a
+    test input on which every camera ray and every bounce hits something in
+    the tree.  Returns (scene, camera, configuration, that tree, the first
+    light that is not the skybox)."""
+    from gnxraytracer_tpu_torch.models.integrators import path
+    from gnxraytracer_tpu_torch.ops import bvh as bvh_mod
+    from gnxraytracer_tpu_torch.scene import presets
+    from gnxraytracer_tpu_torch.scene.loaders import make_test_mesh
+
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, mesh=make_test_mesh(5),
+                                     bvh=True, dragon_material=MIRROR_ID,
+                                     device=dev)
+    cfg = path.make_config(scene, WIDTH, HEIGHT, spp=SPP_CHUNK, max_depth=1,
+                           spp_chunk=SPP_CHUNK)
+    tree = bvh_mod.build_bvh(scene.geom.vertices.cpu().numpy(),
+                             scene.geom.triangles.cpu().numpy(), device=dev)
+    light = next(i for i, k in enumerate(cfg.light_kind_seq) if k != 5)
+    return scene, cam, cfg, tree, light
 
 
 def entering_rays(dev, pack, n, seed=0):
@@ -959,6 +1016,25 @@ def phase_packet_kernels(dev, scene, cfg, rays, wide_times, wide_visits):
                           "binary shared-edge", e_got,
                           pk.packet_closest_hit_reference(quad, e_o, e_d, e_t),
                           e_t)))
+    # the shared edges between quads in other leaves of one tree
+    r_v, r_t, r_o, r_d, r_tm = quad_row(dev)
+    row = bvh_mod.build_bvh(r_v, r_t, device=dev).packet
+    check(row.nodes.shape[0] > 3, "the quad row's tree has one leaf")
+    r_got = pk.packet_closest_hit(row, r_o, r_d, r_tm)
+    check(bool(r_got.hit.all()), f"binary: {int((~r_got.hit).sum())} rays "
+          "leaked through an edge shared by two leaves")
+    r_occ = pk.packet_any_hit(row, r_o, r_d, r_tm)
+    check(torch.equal(r_occ, pk.packet_any_hit_reference(row, r_o, r_d, r_tm))
+          and bool(r_occ.all()), "binary any hit: the quad row leaks")
+    cases.append(dict(kernel="packet_closest_hit",
+                      case="shared edge across two leaves", n_rays=400,
+                      plain_on="all rays", max_abs_err=compare_wide_hits(
+                          "binary quad row", r_got,
+                          pk.packet_closest_hit_reference(row, r_o, r_d, r_tm),
+                          r_tm)))
+    cases.append(dict(kernel="packet_any_hit",
+                      case="shared edge across two leaves", n_rays=400,
+                      plain_on="all rays", max_abs_err=0.0))
     check(pk.closest_launch_count > c0 and pk.any_launch_count > a0,
           "a wrapper did not count its launches")
     emit({"phase": "packet_kernel_vs_plain", "tolerance": {
@@ -979,7 +1055,18 @@ def phase_packet_kernels(dev, scene, cfg, rays, wide_times, wide_visits):
         times[name]["wide_kernel_ms_sorted"] = wide_times[name]["kernel_ms_sorted"]
         times[name]["bound_ms"] = cast_bound(
             n, name, table_bytes, visits[name], OPS_PER_NODE)[0]
+    sorts = [sorts_by_default(f) for f in (pk.packet_closest_hit,
+                                            pk.packet_any_hit)]
+    check(not any(sorts), "the binary wrappers sort their rays by default")
+    # operators one cast dispatches, as trace._bvh_casts makes it and with
+    # the coherence sort the wrappers made before
+    o, d, t = rays["bounce"]
+    ops = {label: count_dispatched_ops(lambda: pk.packet_closest_hit(
+        pack, o, d, t, sort=srt, sort_key=cfg.sort_key))
+        for label, srt in (("default", False), ("with_sort", True))}
     emit({"phase": "packet_kernel_times", "n_rays": n, "times": times,
+          "wrappers_sort_by_default": sorts,
+          "dispatched_ops_per_bounce_cast": ops,
           "plain_ms_on_subsample": plain_ms, "subsample": len(sub),
           "visits_scaled_to_n_rays": visits,
           "wide_visits_scaled_to_n_rays": wide_visits})
@@ -1068,6 +1155,23 @@ def packet_counts(pk):
 
 def wide_counts(wb):
     return (wb.closest_launch_count, wb.any_launch_count)
+
+
+@contextlib.contextmanager
+def counting_sorts(wb):
+    """Counts the coherence sorts the BVH wrappers make while the block runs
+    (kernels/wide_bvh._sorted_cast, which both pairs of wrappers share):
+    yields a one-entry list."""
+    n, sort = [0], wb.ray_sort_perm
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return sort(*a, **kw)
+    wb.ray_sort_perm = counted
+    try:
+        yield n
+    finally:
+        wb.ray_sort_perm = sort
 
 
 @contextlib.contextmanager
@@ -1310,15 +1414,21 @@ def phase_mesh_path_binary(dev, ch, wb, pk, setup, wide_chunk):
         _, n_rays = path.render_chunk(scene, cam, smp, cfg, 0, SPP_CHUNK)
         torch.cuda.synchronize()
         reset_counts(ch, wb, pk)
-        ms, img = timed_chunk(path, scene, cam, smp, cfg, 4)
+        with counting_sorts(wb) as sorts:
+            ms, img = timed_chunk(path, scene, cam, smp, cfg, 4)
         launches = packet_counts(pk)
+        brute, wide = brute_counts(ch), wide_counts(wb)
+        chunk_ops = count_dispatched_ops(
+            lambda: path.render_chunk(scene, cam, smp, cfg, 4, SPP_CHUNK))
+    check(sorts[0] == 0, f"GNX_WIDE_BVH=0: the chunk sorted its rays "
+          f"{sorts[0]} times")
     per_chunk = path.pipelined_cast_counts(cfg, lanes)
     check(launches == per_chunk,
           f"binary kernel launches {launches} != casts {per_chunk}")
-    check(wide_counts(wb) == (0, 0),
+    check(wide == (0, 0),
           "GNX_WIDE_BVH=0: the mesh chunk still launched a wide kernel")
-    check(brute_counts(ch) == launches, f"GNX_WIDE_BVH=0: brute-force "
-          f"launches {brute_counts(ch)} != casts {launches}")
+    check(brute == launches, f"GNX_WIDE_BVH=0: brute-force "
+          f"launches {brute} != casts {launches}")
     check_no_plain_brute("mesh chunk, GNX_WIDE_BVH=0")
     check(bool(torch.isfinite(img).all()), "binary walk: image not finite")
     diff = (img - wide_chunk).abs()
@@ -1331,6 +1441,7 @@ def phase_mesh_path_binary(dev, ch, wb, pk, setup, wide_chunk):
                               "wide_closest_hit": 0, "wide_any_hit": 0,
                               "closest_hit": launches[0],
                               "brute_any_hit": launches[1]},
+          "coherence_sorts": sorts[0], "dispatched_ops_in_chunk": chunk_ops,
           "rays_per_path": float(n_rays) / lanes, "ms_per_chunk": ms,
           "Mpaths_per_s": lanes / ms / 1e3,
           "image_mean": float(img.mean()) / SPP_CHUNK,
@@ -1349,7 +1460,6 @@ def phase_mesh_path_binary(dev, ch, wb, pk, setup, wide_chunk):
 # ---------------------------------------------------------------------------
 
 WHITTED_DEPTH = 5
-MIRROR_ID = 4  # the mirror of presets.reference_materials
 
 
 def timed_render(mod, scene, cam, smp, cfg, *extra, reset):
@@ -1453,27 +1563,28 @@ def depth0_shadow_rays(scene, cam, cfg, smp, li_idx):
     return so.contiguous(), sd.contiguous(), st.contiguous()
 
 
-def cast_both_walks(dev, scene, cfg, wb, pk, rays_label, o, d, t, need_hits,
-                    any_hit=False):
+def cast_both_walks(dev, tree, sort_key, wb, pk, rays_label, o, d, t,
+                    need_hits, any_hit=False,
+                    scene_label="cornell + mirror mesh"):
     """One ray set through the closest-hit (or, with any_hit, the any-hit)
-    kernels of both walks of a scene's tree: each against its plain walk on
-    a sub-sample, its times, and its visits a live ray."""
+    kernels of both walks of a tree (ops/bvh.BVH): each against its plain
+    walk on a sub-sample, its times, its visits a live ray and its bound."""
     n = o.shape[0]
     sub = torch.arange(0, n, n // PLAIN_SUBSAMPLE, device=dev)[:PLAIN_SUBSAMPLE]
     args_sub = [x[sub].contiguous() for x in (o, d, t)]
     alive = max(int((args_sub[2] > 0).sum()), 1)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kind = "any_hit" if any_hit else "closest_hit"
-    out = {"phase": "slice3_cast", "scene": "cornell + mirror mesh",
+    out = {"phase": "slice3_cast", "scene": scene_label,
            "kernels": kind, "rays": rays_label, "n_rays": n,
            "alive_fraction": float((t > 0).float().mean())}
-    wide = scene.bvh.wide
+    wide = tree.wide
     hits = {}
-    for label, mod, pack, lo, hi in (
-            ("packet", pk, scene.bvh.packet, scene.bvh.packet.nodes[0, 0:3],
-             scene.bvh.packet.nodes[0, 3:6]),
+    for label, mod, pack, lo, hi, node_ops in (
+            ("packet", pk, tree.packet, tree.packet.nodes[0, 0:3],
+             tree.packet.nodes[0, 3:6], OPS_PER_NODE),
             ("wide", wb, wide, wide.frame[0:3],
-             wide.frame[0:3] + 255.0 * wide.frame[3:6])):
+             wide.frame[0:3] + 255.0 * wide.frame[3:6], 8 * OPS_PER_SLAB)):
         cast = getattr(mod, f"{label}_{kind}")
         plain = getattr(mod, f"{label}_{kind}_reference")
         stats = {}
@@ -1493,10 +1604,16 @@ def cast_both_walks(dev, scene, cfg, wb, pk, rays_label, o, d, t, need_hits,
                                     type(got)(*(x[sub] for x in got)), ref,
                                     args_sub[2], need_hits=need_hits)
             frac = {"hit_fraction": float(got.hit.float().mean())}
+        table_bytes = sum(x.numel() * x.element_size() for x in pack
+                          if isinstance(x, torch.Tensor))
+        visits = {k: stats[k] * n / len(sub)
+                  for k in ("node_visits", "leaf_visits")}
         out[label] = dict(
-            **cast_times(cast, pack, o, d, t, lo, hi, cfg.sort_key, flush),
+            **cast_times(cast, pack, o, d, t, lo, hi, sort_key, flush),
             node_visits_per_live_ray=stats["node_visits"] / alive,
             leaf_rows_per_live_ray=stats["leaf_visits"] / alive,
+            bound_ms=cast_bound(n, "shadow" if any_hit else "bounce",
+                                table_bytes, visits, node_ops)[0],
             max_abs_err_vs_plain=err, **frac)
     if any_hit:
         check(torch.equal(hits["packet"], hits["wide"]),
@@ -1548,7 +1665,8 @@ def phase_slice3(dev, ch, wb, pk):
             ("wide", contextlib.nullcontext(), "wide"),
             ("GNX_WIDE_BVH=0", binary_walk(), "packet")):
         reset_counts(ch, wb, pk)
-        with tempfile.TemporaryDirectory() as out_dir, ctx:
+        with tempfile.TemporaryDirectory() as out_dir, ctx, \
+                counting_sorts(wb) as sorts:
             out = os.path.join(out_dir, "cli.npy")
             log = io.StringIO()
             with contextlib.redirect_stdout(log):
@@ -1564,6 +1682,8 @@ def phase_slice3(dev, ch, wb, pk):
                   "closest_hit": 2, "brute_any_hit": 2 * lights}
         check(all(counts[k] == (expect.get(k, 0)) for k in counts),
               f"CLI whitted/cornell-mesh ({label}): launches {counts}")
+        check(sorts[0] == 0, f"CLI whitted/cornell-mesh ({label}): the casts "
+              f"sorted their rays {sorts[0]} times")
         check(cli_img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(cli_img).all()
               and cli_img.mean() > 0.05, "CLI whitted: bad image")
         emit({"phase": "slice3_path", "scene": "cornell-mesh (20,480 triangles)",
@@ -1595,10 +1715,12 @@ def phase_slice3(dev, ch, wb, pk):
              (2 * (WHITTED_DEPTH + 1), WHITTED_DEPTH + 1))):
         for label, ctx, want in (("wide", contextlib.nullcontext(), "wide"),
                                  ("GNX_WIDE_BVH=0", binary_walk(), "packet")):
-            with ctx:
+            with ctx, counting_sorts(wb) as sorts:
                 img, ms, peak, chunks = timed_render(mod, scene, cam, smp, cfg,
                                                      reset=reset)
             counts = all_counts(ch, wb, pk)
+            check(sorts[0] == 0, f"{name} mirror mesh ({label}): the casts "
+                  f"sorted their rays {sorts[0]} times")
             expect = {f"{want}_closest_hit": per_chunk[0] * chunks,
                       f"{want}_any_hit": per_chunk[1] * chunks,
                       "closest_hit": per_chunk[0] * chunks,
@@ -1639,8 +1761,25 @@ def phase_slice3(dev, ch, wb, pk):
              depth0_shadow_rays(scene, cam, cfg, smp, li_idx), True, True),
             ("incoherent shadow rays: the same origins and directions",
              (ro.contiguous(), rdir.contiguous(), t_far), True, True)):
-        emit(cast_both_walks(dev, scene, cfg, wb, pk, rays_label, o, d, t,
-                             need_hits, any_hit))
+        emit(cast_both_walks(dev, scene.bvh, cfg.sort_key, wb, pk,
+                             rays_label, o, d, t, need_hits, any_hit))
+
+    # one tree over every triangle of the scene, the walls and the light in
+    # it: every camera ray hits something in the tree, and so do most
+    # bounces (a test input, not a scene feature)
+    c_scene, c_cam, c_cfg, tree, light = closed_tree_setup(dev)
+    check(int((tree.packet.tid >= 0).sum()) == c_cfg.n_tris,
+          "the closed tree does not hold every triangle")
+    c_rays = path_rays(dev, c_scene, c_cam, c_cfg, light=light)
+    label = f"closed tree: the same scene, all {c_cfg.n_tris} triangles in one tree"
+    for rays_label, any_hit in (("camera", False), ("bounce", False),
+                                (f"shadow toward light {light}", True)):
+        rec = cast_both_walks(dev, tree, c_cfg.sort_key, wb, pk, rays_label,
+                              *c_rays[rays_label.split()[0]], True, any_hit,
+                              scene_label=label)
+        check(rays_label != "camera" or rec["packet"]["hit_fraction"] == 1.0,
+              "closed tree: a camera ray left the scene")
+        emit(rec)
 
     # (d) direct lighting, both strategies
     scene, cam = presets.cornell_box(WIDTH, HEIGHT, device=dev)

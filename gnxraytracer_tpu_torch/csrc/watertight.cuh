@@ -126,14 +126,11 @@ __device__ __forceinline__ bool watertight_tail(const Sheared& s, float& t,
   return t > delta_t;
 }
 
-// One triangle q[0..8] = p0|p1|p2 against the ray, accepting 0 < t <=
-// t_limit.  On a hit returns true with t and the barycentrics b0, b1, b2;
-// the caller decides whether it improves on its best.  Every step runs for
-// every pair (the BVH kernels test few pairs a ray, from registers).
-__device__ __forceinline__ bool watertight_hit(const RayFrame& f, const float* q,
-                                               float t_limit, float& t,
-                                               float& b0, float& b1, float& b2) {
-  float x[3], y[3], z[3];
+// The translated, permuted and sheared vertices of the triangle row
+// q[0..8] = p0|p1|p2 under a RayFrame (z not yet scaled).
+__device__ __forceinline__ void frame_vertices(const RayFrame& f,
+                                               const float* q, float x[3],
+                                               float y[3], float z[3]) {
 #pragma unroll
   for (int v = 0; v < 3; ++v) {
     const float px = q[3 * v + 0] - f.ox;
@@ -146,6 +143,17 @@ __device__ __forceinline__ bool watertight_hit(const RayFrame& f, const float* q
     y[v] = yp + f.sy * zp;
     z[v] = zp;
   }
+}
+
+// One triangle q[0..8] = p0|p1|p2 against the ray, accepting 0 < t <=
+// t_limit.  On a hit returns true with t and the barycentrics b0, b1, b2;
+// the caller decides whether it improves on its best.  Every step runs for
+// every pair (the wide kernel tests few pairs a ray, from registers).
+__device__ __forceinline__ bool watertight_hit(const RayFrame& f, const float* q,
+                                               float t_limit, float& t,
+                                               float& b0, float& b1, float& b2) {
+  float x[3], y[3], z[3];
+  frame_vertices(f, q, x, y, z);
   Sheared s;
   const bool edges = watertight_edges(x, y, s);
   const bool range = watertight_range(z, f.sz, t_limit, s);

@@ -166,7 +166,11 @@ def ray_spheres(o, d, t_max, center, radius):
     c = torch.sum(oc * oc, dim=-1) - (radius * radius)[None]
     disc = b * b - 4 * a * c
     ok = disc > 0
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    # the square root rounded correctly, as XLA's: float32 torch.sqrt on the
+    # CPU is not (an ulp off on some lanes, and with several intra-op
+    # threads now and then a chunk of lanes off by up to 3e-4 relative);
+    # rounding the float64 root to float32 is exact for every float32 input
+    sq = torch.sqrt(torch.clamp(disc, min=0.0).double()).float()
     q = torch.where(b < 0, -0.5 * (b - sq), -0.5 * (b + sq))
     t0 = q / a
     t1 = c / torch.where(q == 0, 1.0, q)

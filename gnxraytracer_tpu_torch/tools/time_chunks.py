@@ -2,7 +2,7 @@
 found under --root; a development measurement on one NVIDIA GPU.
 
     python gnxraytracer_tpu_torch/tools/time_chunks.py [--root DIR]
-        [--chunks N] [--label LABEL]
+        [--chunks N] [--label LABEL] [--paths NAME,...]
 
 Run it as a file, not with -m, so that the package it times is the one
 under --root (default: this checkout), for instance the parent commit's
@@ -12,9 +12,15 @@ change, parent) in one call.  The chunks are chip_smoke.py's, at 500x500:
 the Cornell fast-MIS path (Sobol', depth 8, 1M lanes, tail compaction,
 use_pallas), Whitted on the Cornell box (Halton, depth 5, 2M lanes,
 use_pallas) and Whitted on the Cornell box with a mirror mesh (20,480
-triangles in a BVH, its walls kept out of it, 1M lanes).  Each path runs a
-warm-up chunk, then N chunks, each timed on the host's clock up to
-torch.cuda.synchronize(); prints one JSON line with the times of each.
+triangles in a BVH, its walls kept out of it, 1M lanes); with --paths,
+those whose names hold one of the given words, where "envmap" adds the
+mesh main path (chip_smoke.mesh_setup: presets.envmap_mesh with a procedural HDR
+environment, Sobol', depth 8, 1M lanes, pipelined casts and four compaction
+stages).  Which BVH walk the casts take follows GNX_WIDE_BVH, so the two
+walks are compared by running this script with GNX_WIDE_BVH=1 and =0 in
+turns.  Each path runs a warm-up chunk, then N chunks, each timed on the
+host's clock up to torch.cuda.synchronize(); prints one JSON line with the
+times of each.
 """
 
 import argparse
@@ -30,7 +36,10 @@ def main(argv=None):
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--chunks", type=int, default=3)
     ap.add_argument("--label", default="")
+    ap.add_argument("--paths", default="cornell,mirror",
+                    help="comma-separated words: the paths whose names hold one")
     args = ap.parse_args(argv)
+    words = [w for w in args.paths.split(",") if w]
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
@@ -61,9 +70,20 @@ def main(argv=None):
             mirror[0], w, h, spp=8, max_depth=5, spp_chunk=4),
             samplers.make_halton_sampler(8, w, h, device=dev)),
     }
+    if "envmap" in words:
+        import tempfile
+
+        import chip_smoke
+
+        with tempfile.TemporaryDirectory() as tmp:
+            scene, cam, cfg, smp, _ = chip_smoke.mesh_setup(dev, tmp)
+        paths["envmap mesh fast-MIS (1M lanes)"] = (path, scene, cam, cfg, smp)
     out = {"label": args.label, "root": args.root,
-           "device": torch.cuda.get_device_name(0), "chunk_ms": {}}
+           "device": torch.cuda.get_device_name(0),
+           "GNX_WIDE_BVH": os.environ.get("GNX_WIDE_BVH"), "chunk_ms": {}}
     for name, (mod, scene, cam, cfg, smp) in paths.items():
+        if not any(w in name for w in words):
+            continue
         n = cfg.spp_chunk
         mod.render_chunk(scene, cam, smp, cfg, 0, n)
         torch.cuda.synchronize()

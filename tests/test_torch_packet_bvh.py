@@ -236,6 +236,126 @@ def test_dead_lanes_visit_nothing(case):
         case["pack"], *args, torch.full((n,), -1.0)).any())
 
 
+# -- the kernels' first pass and the wrappers' defaults ----------------------------
+
+def test_triage_leaves_results_and_visits_unchanged(case):
+    """The rays the kernels' first pass settles (dead, or missing the root,
+    whose miss link ends the walk) get the miss record and their whole walk
+    is the root's test; walking only the others gives those the same
+    results, and the visits add up."""
+    args = [torch.from_numpy(case[k]) for k in ("o", "d", "t_max")]
+    go = T_pk.entering(case["pack"], *args)
+    live = args[2] > 0
+    settled = live & ~go
+    assert int(go.sum()) > 0 and int(settled.sum()) > 0
+    assert not bool(case["closest"].hit[~go].any())
+    assert not bool(case["occ"][~go].any())
+    s_all, s_go = {}, {}
+    per_ray = torch.zeros((N_RAYS,), dtype=torch.int64)
+    T_pk.packet_closest_hit_reference(case["pack"], *args, stats=s_all,
+                                      ray_visits=per_ray)
+    assert int(per_ray.sum()) == s_all["node_visits"]
+    assert bool((per_ray[settled] == 1).all())
+    assert bool((per_ray[~live] == 0).all())
+    sub = [x[go].contiguous() for x in args]
+    got = T_pk.packet_closest_hit_reference(case["pack"], *sub, stats=s_go)
+    for a, b in zip(got, case["closest"]):
+        assert torch.equal(a, b[go])
+    assert s_go["node_visits"] + int(settled.sum()) == s_all["node_visits"]
+    assert s_go["leaf_visits"] == s_all["leaf_visits"]
+    assert torch.equal(T_pk.packet_any_hit_reference(case["pack"], *sub),
+                       case["occ"][go])
+
+
+def test_triage_lists_rays_of_a_table_that_does_not_thread_a_tree():
+    """A root whose miss link goes on: the first pass leaves even the rays
+    that miss the root to the walk, which refuses the table."""
+    v, t = blob(12)
+    pack = T_bvh.build_bvh(v, t, builder="numpy", device="cpu").packet
+    o = torch.tensor([[0.0, 0.0, 50.0]])
+    d = torch.tensor([[0.0, 1.0, 0.0]])  # misses the root's box
+    tm = torch.tensor([1e30])
+    assert not bool(T_pk.entering(pack, o, d, tm)[0])
+    meta = pack.meta.clone()
+    meta[:, 0, 1] = 0
+    bad = pack._replace(meta=meta)
+    assert bool(T_pk.entering(bad, o, d, tm)[0])
+    with pytest.raises(RuntimeError, match="do not thread a tree"):
+        T_pk.packet_closest_hit(bad, o, d, tm)
+
+
+@pytest.mark.parametrize("wrapper", ["packet_closest_hit", "packet_any_hit"])
+def test_wrappers_do_not_sort_by_default(case, wrapper):
+    """sort=False is the default, as for the wide wrappers; the results are
+    those of the sorted cast."""
+    import inspect
+
+    fn = getattr(T_pk, wrapper)
+    assert inspect.signature(fn).parameters["sort"].default is False
+    args = [torch.from_numpy(case[k]) for k in ("o", "d", "t_max")]
+    plain, srt = fn(case["pack"], *args), fn(case["pack"], *args, sort=True)
+    if isinstance(plain, torch.Tensor):
+        assert torch.equal(plain, srt)
+    else:
+        for a, b in zip(plain, srt):
+            assert torch.equal(a, b)
+
+
+# -- a closed tree: the walls and the light inside it ------------------------------
+
+_closed = {}
+
+
+def closed_case():
+    """The Cornell box with a small test mesh, one tree over ALL its
+    triangles (walls and light in it), and rays from inside the box."""
+    if _closed:
+        return _closed
+    from gnxraytracer_tpu_torch.scene import loaders as T_load
+    from gnxraytracer_tpu_torch.scene import presets as T_presets
+
+    scene, _ = T_presets.cornell_box(8, 8, mesh=T_load.make_test_mesh(2),
+                                     bvh=True, device="cpu")
+    v = scene.geom.vertices.numpy()
+    t = scene.geom.triangles.numpy()
+    bvh = T_bvh.build_bvh(v, t, builder="numpy", device="cpu")
+    assert int((bvh.packet.tid >= 0).sum()) == len(t)
+    lo, hi = v.min(0), v.max(0)
+    rs = np.random.RandomState(5)
+    o = (lo + (hi - lo) * (0.1 + 0.8 * rs.rand(N_RAYS, 3))).astype(np.float32)
+    d = rs.randn(N_RAYS, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = mixed_t_max(N_RAYS, float((hi - lo).max()))
+    args = [torch.from_numpy(x) for x in (o, d, t_max)]
+    _closed.update(v=v, t=t, bvh=bvh, o=o, d=d, t_max=t_max, args=args,
+                   closest=T_pk.packet_closest_hit_reference(bvh.packet, *args),
+                   occ=T_pk.packet_any_hit_reference(bvh.packet, *args))
+    return _closed
+
+
+@pytest.mark.parametrize("walk", ["binary", "wide"])
+def test_closed_tree_walks_agree_with_brute_force(walk):
+    """On a tree that holds the walls, nearly every live ray hits inside
+    it; both plain walks against the JAX package's brute force."""
+    case = closed_case()
+    if walk == "binary":
+        got, occ = case["closest"], case["occ"]
+    else:
+        got = T_wk.wide_closest_hit_reference(case["bvh"].wide, *case["args"])
+        occ = T_wk.wide_any_hit_reference(case["bvh"].wide, *case["args"])
+    jargs = [jnp.asarray(case[k]) for k in ("o", "d", "t_max")]
+    ref = J_int.closest_triangle_hit(*jargs, jnp.asarray(case["v"]),
+                                     jnp.asarray(case["t"]))
+    live = case["t_max"] > 0
+    unbounded = case["t_max"] > 1e29
+    assert got.hit.numpy()[unbounded].mean() > 0.7  # the front is open
+    _agree(dict(case, closest=got), ref.hit, ref.t, ref.tri, ref.b)
+    np.testing.assert_array_equal(
+        occ.numpy(), np.asarray(J_int.any_triangle_hit(
+            *jargs, jnp.asarray(case["v"]), jnp.asarray(case["t"]))))
+    assert not occ.numpy()[~live].any()
+
+
 # -- a tree without octant links: K = 1 -------------------------------------------
 
 def test_fixed_order_tree_k1():
