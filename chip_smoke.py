@@ -56,6 +56,22 @@ the CPU or to a plain version:
               direct.render with both strategies
   9. goldens  32 spp Halton through whitted, direct and the faithful path
               against the reference renderer's three Cornell goldens
+ 10. gradients the train step (parallel/sharding.make_train_step) at full
+              width: the Cornell box (Halton, depth 8, 1M lanes, the
+              brute-force kernels) and the mesh scene of phase 5 (Sobol',
+              depth 8, 1M lanes, every parameter class, the wide-BVH
+              kernels, pixel passes from the default memory budget), with
+              forward / backward / step ms, peak memory, passes and launches;
+              one pass against four (64x64); AD against central FD through
+              the kernels; the reference renderer's gradient goldens
+              ref_grad_{kd,le,sigma} and ref_grad_disney_rough; an
+              optimisation that must cut the loss by 30% in 3 steps
+ 11. volpath  volpath.render of presets.cornell_homogeneous (a homogeneous
+              medium in a null-material box) at 500x500, depth 8, Halton,
+              1M lanes a chunk, through kernel 1; the reference renderer's
+              ref_volpath_hom image and ref_grad_med_sigma gradient; a
+              train step with volpath's estimator that moves the medium
+              classes
 
 Launch counts are set to 0 just before each main path is driven and read
 just after; so are the calls of the brute-force casts' plain versions, which
@@ -1913,6 +1929,13 @@ def phase_profile(dev, mesh):
                       scene, cam, cfg, smp, whitted)
 
 
+def block_mean8(img, b=8):
+    """Means of the b x b blocks of an (H, W, C) image."""
+    hh, ww, c = img.shape
+    return img[:hh // b * b, :ww // b * b].reshape(
+        hh // b, b, ww // b, b, c).mean((1, 3))
+
+
 def phase_golden(dev):
     from gnxraytracer_tpu_torch.models.integrators import path
     from gnxraytracer_tpu_torch.ops import samplers
@@ -1929,12 +1952,8 @@ def phase_golden(dev):
     ours = path.render(scene, cam, samplers.make_sobol_sampler(spp, device=dev),
                        cfg).cpu().numpy()
     check(np.isfinite(ours).all(), "golden: the image is not finite")
-
-    def block_mean(img, b=8):
-        hh, ww, c = img.shape
-        return img.reshape(hh // b, b, ww // b, b, c).mean((1, 3))
-
-    berr = float(np.abs(block_mean(ours) - block_mean(ref)).mean() / ref.mean())
+    berr = float(np.abs(block_mean8(ours) - block_mean8(ref)).mean()
+                 / ref.mean())
     merr = float(abs(ours.mean() - ref.mean()) / ref.mean())
     emit({"phase": "golden", "reference": "tests/golden/ref_path_cornell.npz",
           "block8_rel_err": berr, "limit": 0.025, "mean_rel_err": merr,
@@ -1952,11 +1971,6 @@ def phase_goldens_halton(dev):
 
     mods = {"path": path, "direct": direct, "whitted": whitted}
 
-    def block_mean(img, b=8):
-        hh, ww, c = img.shape
-        return img[:hh // b * b, :ww // b * b].reshape(
-            hh // b, b, ww // b, b, c).mean((1, 3))
-
     for name in ("ref_whitted_cornell", "ref_direct_cornell", "ref_path_cornell"):
         z = np.load(os.path.join(HERE, "tests", "golden", f"{name}.npz"))
         ref, meta = z["image"], json.loads(str(z["meta"]))
@@ -1969,7 +1983,7 @@ def phase_goldens_halton(dev):
         smp = samplers.make_halton_sampler(spp, w, h, device=dev)
         ours = mods[meta["integrator"]].render(scene, cam, smp, cfg).cpu().numpy()
         check(np.isfinite(ours).all(), f"{name}: the image is not finite")
-        berr = float(np.abs(block_mean(ours) - block_mean(ref)).mean()
+        berr = float(np.abs(block_mean8(ours) - block_mean8(ref)).mean()
                      / ref.mean())
         merr = float((np.abs(ours.mean((0, 1)) - ref.mean((0, 1)))
                       / ref.mean()).max())
@@ -1980,6 +1994,531 @@ def phase_goldens_halton(dev):
               "channel_mean_rel_err": merr, "mean_limit": 0.03})
         check(berr < 0.035, f"{name}: block8 error {berr}")
         check(merr < 0.03, f"{name}: channel mean error {merr}")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: gradients and the train step
+# ---------------------------------------------------------------------------
+
+GRAD_DEPTH = 8
+GRAD_SPP_CHUNK = 4      # 500x500 x 4 = 1M lanes a step
+GRAD_STEPS = 3          # timed steps, after one warm-up
+
+
+def timed_steps(step, params, scene, cam, smp, target, lr, steps=GRAD_STEPS):
+    """One warm-up step and `steps` timed ones (each between CUDA events),
+    all from the same params.  Returns (loss, new_params, stats of the last
+    step, median forward / backward / step ms, peak bytes over the steps)."""
+    fwd, bwd, tot = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps + 1):
+        stats = {}
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss, new = step(params, scene, cam, smp, target, lr=lr, stats=stats)
+        b.record()
+        torch.cuda.synchronize()
+        if i:
+            fwd.append(stats["forward_ms"])
+            bwd.append(stats["backward_ms"])
+            tot.append(a.elapsed_time(b))
+    return (loss, new, stats, float(np.median(fwd)), float(np.median(bwd)),
+            float(np.median(tot)), torch.cuda.max_memory_allocated())
+
+
+def step_record(label, cfg, loss, stats, fwd, bwd, tot, peak, counts, moved):
+    lanes = cfg.width * cfg.height * cfg.spp_chunk
+    return {"phase": "gradients", "what": label, "width": cfg.width,
+            "height": cfg.height, "max_depth": cfg.max_depth,
+            "spp_chunk": cfg.spp_chunk, "lanes": lanes,
+            "passes": stats["passes"], "lanes_per_pass": stats["lanes"],
+            "loss": float(loss), "forward_ms": fwd, "backward_ms": bwd,
+            "step_ms": tot, "peak_device_MiB": peak / 2 ** 20,
+            "peak_bytes_per_lane_of_largest_pass": peak / max(stats["lanes"]),
+            "kernel_launches": counts, "moved": moved}
+
+
+def check_step(label, params, new, stats, want_moved):
+    for k, g in stats["grads"].items():
+        check(g is not None and bool(torch.isfinite(g).all()),
+              f"{label}: the gradient of {k} is not finite")
+    for k in params:
+        check(bool(torch.isfinite(new[k]).all()),
+              f"{label}: {k} is not finite after the step")
+    moved = {k: float((new[k] - params[k]).abs().max()) for k in params}
+    for k in want_moved:
+        check(moved[k] > 0, f"{label}: {k} did not move")
+    return moved
+
+
+def expected_step_launches(cfg, passes, steps, bvh):
+    """Launches a train step makes: each bounce of the faithful estimator
+    (max_depth + 1 of them, every lane cast, dead ones with t_max = 0) casts
+    the closest hit, the light sample's shadow ray and the BSDF sample's
+    re-intersection.  Through a BVH every cast brute-forces the big
+    triangles kept out of the tree first."""
+    closest = 2 * (cfg.max_depth + 1) * passes * steps
+    shadow = (cfg.max_depth + 1) * passes * steps
+    if bvh:
+        return {"closest_hit": closest, "brute_any_hit": shadow,
+                "wide_closest_hit": closest, "wide_any_hit": shadow,
+                "packet_closest_hit": 0, "packet_any_hit": 0}
+    return {"closest_hit": closest, "brute_any_hit": shadow,
+            "wide_closest_hit": 0, "wide_any_hit": 0,
+            "packet_closest_hit": 0, "packet_any_hit": 0}
+
+
+def oracle_fd(name):
+    """d(mean image)/d(theta) of the reference renderer: the central
+    difference of its two renders in tests/golden/<name>.npz."""
+    z = np.load(os.path.join(HERE, "tests", "golden", f"{name}.npz"))
+    return float(((z["plus"] - z["minus"]) / (2 * float(z["h"]))).mean())
+
+
+def golden_grad(dev, name, make_scene, scale, spp=256, chunk=32, w=32, h=32):
+    """The port's AD of d(mean image)/d(theta) at theta = 1 (theta = the
+    golden's base value for kd/le/sigma), 32x32, 256 spp Halton, depth 8,
+    each 32-spp chunk differentiated on its own and the gradients summed,
+    as tests/test_reference_parity.py computes it."""
+    from gnxraytracer_tpu_torch.models.integrators import path
+    from gnxraytracer_tpu_torch.ops import samplers
+
+    scene, cam = make_scene(w, h)
+    cfg = path.make_config(scene, w, h, spp=spp, max_depth=8, spp_chunk=chunk,
+                           use_pallas=True)
+    smp = samplers.make_halton_sampler(spp, w, h, device=dev)
+    theta0, scaled = scale(scene)
+    theta = torch.tensor(theta0, device=dev, requires_grad=True)
+    for s in range(0, spp, chunk):
+        img = path.render_chunk(scaled(scene, theta), cam, smp, cfg, s, chunk)
+        (torch.mean(img) / spp).backward()
+    return float(theta.grad)
+
+
+def gradient_goldens(dev):
+    """(golden name, scene maker (w, h), scale, rtol, sign of the gradient or
+    0) of each gradient golden: scale(scene) -> (theta0, scaled(scene,
+    theta)), the scene with the golden's parameter set from theta, as
+    tests/test_reference_parity.py sets it."""
+    from gnxraytracer_tpu_torch.scene import presets
+    from gnxraytracer_tpu_torch.scene.scene import MAT_DISNEY
+
+    def kd_white(s):
+        return 1.0, lambda s, t: s._replace(materials=s.materials._replace(
+            kd=s.materials.kd * torch.where(
+                torch.arange(s.materials.kd.shape[0], device=dev) == 0,
+                t, torch.ones((), device=dev))[:, None]))
+
+    def le(s):
+        return 5.0, lambda s, t: s._replace(lights=s.lights._replace(
+            emit=torch.ones_like(s.lights.emit) * t))
+
+    def sigma(s):
+        return 60.0, lambda s, t: s._replace(materials=s.materials._replace(
+            sigma=torch.ones_like(s.materials.sigma) * t))
+
+    def disney_rough(s):
+        is_d = s.materials.kind == MAT_DISNEY
+
+        def scaled(s, t):
+            m = s.materials
+            return s._replace(materials=m._replace(
+                rough_u=torch.where(is_d, m.rough_u * t, m.rough_u),
+                rough_v=torch.where(is_d, m.rough_v * t, m.rough_v)))
+        return 1.0, scaled
+
+    def cornell(sig):
+        return lambda w, h: presets.cornell_box(w, h, sigma=sig, skybox=False,
+                                                device=dev)
+
+    goldens = (("ref_grad_kd", cornell(0.0), kd_white, 0.05, 1),
+               ("ref_grad_le", cornell(0.0), le, 0.05, 1),
+               ("ref_grad_sigma", cornell(60.0), sigma, 0.05, -1),
+               ("ref_grad_disney_rough",
+                lambda w, h: presets.cornell_gmd(w, h, sigma=0.0, device=dev),
+                disney_rough, 0.25, 0))
+    return goldens
+
+
+def phase_gradients(dev, ch, wb, pk, mesh):
+    """Phase 10: the train step at full width on the Cornell box and the
+    mesh scene, passes against one pass, AD against FD and the reference
+    renderer's gradient goldens on the card, and an optimisation that
+    descends."""
+    from gnxraytracer_tpu_torch.models.integrators import path
+    from gnxraytracer_tpu_torch.ops import samplers
+    from gnxraytracer_tpu_torch.parallel import sharding
+    from gnxraytracer_tpu_torch.scene import presets
+
+    total_bytes = torch.cuda.get_device_properties(dev).total_memory
+
+    # (a) Cornell at full width: 1M lanes, Halton, depth 8, the brute-force
+    # kernels; one step on kd and light_emit toward the true image from a
+    # perturbed kd
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, device=dev)
+    cfg = path.make_config(scene, WIDTH, HEIGHT, spp=GRAD_SPP_CHUNK,
+                           max_depth=GRAD_DEPTH, spp_chunk=GRAD_SPP_CHUNK,
+                           use_pallas=True)
+    smp = samplers.make_halton_sampler(GRAD_SPP_CHUNK, WIDTH, HEIGHT,
+                                       device=dev)
+    with torch.no_grad():
+        target = path.render(scene, cam, smp, cfg)
+    full = sharding.extract_params(scene)
+    params = {"kd": full["kd"] * 0.8, "light_emit": full["light_emit"]}
+    step = sharding.make_train_step(cfg)
+    reset_counts(ch, wb, pk)
+    loss, new, stats, fwd, bwd, tot, peak = timed_steps(
+        step, params, scene, cam, smp, target, lr=1.0)
+    check_no_plain_brute("phase 10 cornell train step")
+    counts = all_counts(ch, wb, pk)
+    want = expected_step_launches(cfg, stats["passes"], GRAD_STEPS + 1, False)
+    check(counts == want, f"cornell train step: launches {counts}, "
+          f"expected {want}")
+    check(bool(torch.isfinite(loss)), f"cornell train step: loss {loss}")
+    moved = check_step("cornell train step", params, new, stats,
+                       ("kd", "light_emit"))
+    check(peak < total_bytes, "cornell train step: peak over the card")
+    emit(step_record("train step, cornell (kd, light_emit)", cfg, loss, stats,
+                     fwd, bwd, tot, peak, counts, moved))
+    del target, new, stats, step
+    torch.cuda.empty_cache()
+
+    # (b) the mesh scene at full width: 1M lanes, Sobol', depth 8, every
+    # class of extract_params, passes from the default budget
+    mscene, mcam = mesh[0], mesh[1]
+    mcfg = path.make_config(mscene, WIDTH, HEIGHT, spp=GRAD_SPP_CHUNK,
+                            max_depth=GRAD_DEPTH, spp_chunk=GRAD_SPP_CHUNK)
+    check(mcfg.use_bvh and mcfg.bvh_mode == "pallas" and mcfg.has_env
+          and mcfg.has_textures, f"mesh train step: unexpected config {mcfg}")
+    msmp = samplers.make_sobol_sampler(GRAD_SPP_CHUNK, device=dev)
+    mparams = sharding.extract_params(mscene)
+    with torch.no_grad():
+        mtarget = torch.cat([
+            sharding.pass_image(mscene, mcam, msmp, mcfg, torch.arange(
+                p0, p1, dtype=torch.int32, device=dev), 0)
+            for p0, p1 in sharding.pixel_passes(
+                mcfg, sharding.default_lane_budget(mcfg, dev))])
+    mparams = dict(mparams, kd=mparams["kd"] * 0.8)
+    mstep = sharding.make_train_step(mcfg)
+    budget = sharding.default_lane_budget(mcfg, dev)
+    reset_counts(ch, wb, pk)
+    loss, new, stats, fwd, bwd, tot, peak = timed_steps(
+        mstep, mparams, mscene, mcam, msmp, mtarget, lr=1.0)
+    check_no_plain_brute("phase 10 mesh train step")
+    counts = all_counts(ch, wb, pk)
+    want = expected_step_launches(mcfg, stats["passes"], GRAD_STEPS + 1, True)
+    check(counts == want, f"mesh train step: launches {counts}, "
+          f"expected {want}")
+    check(bool(torch.isfinite(loss)), f"mesh train step: loss {loss}")
+    moved = check_step("mesh train step", mparams, new, stats,
+                       ("kd", "env_image", "tex_atlas"))
+    check(peak < total_bytes, f"mesh train step: peak {peak} over the card")
+    reserved = torch.cuda.max_memory_reserved()
+    rec = step_record("train step, envmap_mesh (every class)", mcfg, loss,
+                      stats, fwd, bwd, tot, peak, counts, moved)
+    rec.update(lane_budget=budget, stated_bytes_per_lane=sharding.lane_bytes(
+        mcfg), card_total_MiB=total_bytes / 2 ** 20,
+        peak_reserved_MiB=reserved / 2 ** 20)
+    emit(rec)
+    del mtarget, new, stats, mstep
+    torch.cuda.empty_cache()
+
+    # (c) passes are the same function: Cornell 64x64, 8 spp, one pass
+    # against four
+    w = h = 64
+    sc, cm = presets.cornell_box(w, h, device=dev)
+    c64 = path.make_config(sc, w, h, spp=8, max_depth=GRAD_DEPTH, spp_chunk=8,
+                           use_pallas=True)
+    s64 = samplers.make_halton_sampler(8, w, h, device=dev)
+    with torch.no_grad():
+        t64 = path.render(sc, cm, s64, c64)
+    p64 = sharding.extract_params(sc)
+    p64 = dict(p64, kd=p64["kd"] * 0.7)
+    grads = {}
+    for n_pass in (1, 4):
+        stats = {}
+        sharding.make_train_step(c64, lane_budget=w * h * 8 // n_pass)(
+            p64, sc, cm, s64, t64, stats=stats)
+        check(stats["passes"] == n_pass, f"passes: {stats['passes']}")
+        grads[n_pass] = stats["grads"]
+    worst = {}
+    for k, g1 in grads[1].items():
+        g4 = grads[4][k]
+        scale_k = float(g1.abs().max())
+        err = (g4 - g1).abs() - 1e-4 * g1.abs()
+        worst[k] = float((g4 - g1).abs().max()) / scale_k if scale_k else 0.0
+        check(bool((err <= 1e-6 * scale_k).all()),
+              f"passes: the gradient of {k} differs between one and four "
+              f"passes beyond rtol 1e-4 (largest element {scale_k})")
+    emit({"phase": "gradients", "what": "one pass against four, cornell 64x64, "
+          "8 spp, depth 8", "rtol": 1e-4,
+          "atol": "1e-6 x the class's largest element",
+          "max_abs_diff_over_class_max": worst})
+
+    # (d) AD against central FD through the kernels: tests/test_gradients.py's
+    # setup (Cornell 16x16, depth 3, 32 spp, Halton), the same stream both
+    # sides
+    w = h = 16
+    sc, cm = presets.cornell_box(w, h, device=dev)
+    c16 = path.make_config(sc, w, h, spp=32, max_depth=3, spp_chunk=32,
+                           use_pallas=True)
+    s16 = samplers.make_halton_sampler(32, w, h, device=dev)
+
+    def mean_img(kd=None, emit_=None):
+        mats = sc.materials if kd is None else sc.materials._replace(kd=kd)
+        lights = sc.lights if emit_ is None else sc.lights._replace(emit=emit_)
+        img = path.render_chunk(sc._replace(materials=mats, lights=lights),
+                                cm, s16, c16, 0, 32)
+        return torch.mean(img / 32)
+
+    reset_counts(ch, wb, pk)
+    fd_rec = {}
+    for key, idx, eps, rtol, atol in (("kd", (0, 0), 1e-2, 0.08, 1e-5),
+                                      ("light_emit", (0, 1), 1e-2, 2e-2, 0.0)):
+        x0 = (sc.materials.kd if key == "kd" else sc.lights.emit).clone()
+        x = x0.clone().requires_grad_(True)
+        arg = (lambda v: {"kd": v}) if key == "kd" else \
+            (lambda v: {"emit_": v})
+        (g,) = torch.autograd.grad(mean_img(**arg(x)), x)
+        e = torch.zeros_like(x0)
+        e[idx] = eps
+        with torch.no_grad():
+            fd = float((mean_img(**arg(x0 + e)) - mean_img(**arg(x0 - e)))
+                       / (2 * eps))
+        ad = float(g[idx])
+        fd_rec[key] = {"ad": ad, "fd": fd, "rtol": rtol, "atol": atol}
+        check(bool(torch.isfinite(g).all()), f"AD vs FD: {key} not finite")
+        check(abs(ad - fd) <= atol + rtol * abs(fd) and ad > 0,
+              f"AD vs FD: {key}{idx} ad {ad} fd {fd}")
+    check_no_plain_brute("phase 10 AD vs FD")
+    counts = all_counts(ch, wb, pk)
+    check(counts["closest_hit"] > 0 and counts["brute_any_hit"] > 0,
+          f"AD vs FD: the kernels did not launch {counts}")
+    emit({"phase": "gradients", "what": "AD against central FD, cornell "
+          "16x16, 32 spp, depth 3, halton", "cases": fd_rec,
+          "kernel_launches": counts})
+
+    # (e) optimisation progress: the JAX package's multichip dry run's third
+    # scene (Cornell 64x64, 8 spp, depth 3, kd scaled by 0.55): some lr of
+    # (8, 2, 32, 0.5) cuts the loss by 30% in 3 steps
+    w = h = 64
+    sc, cm = presets.cornell_box(w, h, device=dev)
+    c3 = path.make_config(sc, w, h, spp=8, max_depth=3, spp_chunk=8,
+                          use_pallas=True)
+    s3 = samplers.make_halton_sampler(256, w, h, device=dev)
+    with torch.no_grad():
+        t3 = path.render(sc, cm, s3, c3)
+    p3 = sharding.extract_params(sc)
+    step3 = sharding.make_train_step(c3)
+    tried = {}
+    for lr in (8.0, 2.0, 32.0, 0.5):
+        params = dict(p3, kd=p3["kd"] * 0.55)
+        losses = []
+        for _ in range(3):
+            loss, params = step3(params, sc, cm, s3, t3, lr=lr)
+            losses.append(float(loss))
+        tried[lr] = losses
+        if losses[-1] < losses[0] * 0.7:
+            break
+    emit({"phase": "gradients", "what": "optimisation, cornell 64x64, 8 spp, "
+          "depth 3, kd x 0.55", "losses_by_lr": {str(k): v
+                                                  for k, v in tried.items()}})
+    check(any(v[-1] < v[0] * 0.7 for v in tried.values()),
+          f"optimisation: no lr cut the loss by 30% in 3 steps: {tried}")
+
+    # (f) the reference renderer's gradient goldens
+    for name, make_scene, scale, rtol, sign in gradient_goldens(dev):
+        reset_counts(ch, wb, pk)
+        t0 = time.time()
+        ad = golden_grad(dev, name, make_scene, scale)
+        secs = time.time() - t0
+        check_no_plain_brute(f"phase 10 {name}")
+        counts = all_counts(ch, wb, pk)
+        check_gradient_golden(name, ad, rtol, secs, counts)
+        check(sign == 0 or np.sign(ad) == sign, f"{name}: sign of {ad}")
+        check(counts["closest_hit"] > 0 and counts["brute_any_hit"] > 0,
+              f"{name}: the kernels did not launch {counts}")
+
+
+# the JAX package's own AD of each gradient golden (tests/golden/
+# jax_grad_ad.json, written by tests/jax_gradient_goldens.py), and how close
+# the port's AD must come to it where the JAX package fails the golden
+JAX_AD_RTOL = 0.05
+
+
+def check_gradient_golden(name, ad, rtol, secs, counts):
+    """The port's AD against the reference renderer's central FD within
+    rtol, where the JAX package's AD passes that golden; where the JAX
+    package's AD fails it, against the JAX package's AD within JAX_AD_RTOL
+    (the port computes the JAX package's estimator, and a golden the
+    reference implementation misses is a fault of that estimator, listed
+    in ROADMAP.md)."""
+    with open(os.path.join(HERE, "tests", "golden", "jax_grad_ad.json")) as f:
+        jax_rec = json.load(f)[name]
+    fd = oracle_fd(name)
+    rel = abs(ad - fd) / abs(fd)
+    rel_jax = abs(ad - jax_rec["jax_ad"]) / abs(jax_rec["jax_ad"])
+    jax_passes = jax_rec["jax_rel_err"] < rtol
+    emit({"phase": "gradients", "what": "golden", "reference":
+          f"tests/golden/{name}.npz", "ad": ad, "oracle_fd": fd,
+          "rel_err": rel, "rtol": rtol, "jax_ad": jax_rec["jax_ad"],
+          "jax_rel_err": jax_rec["jax_rel_err"], "rel_to_jax_ad": rel_jax,
+          "gate": "oracle" if jax_passes else
+          f"the JAX package's AD, rtol {JAX_AD_RTOL}", "seconds": secs,
+          "kernel_launches": counts})
+    check(np.isfinite(ad), f"{name}: ad {ad}")
+    if jax_passes:
+        check(rel < rtol, f"{name}: ad {ad} fd {fd}")
+    else:
+        check(rel_jax < JAX_AD_RTOL,
+              f"{name}: ad {ad}, the JAX package's {jax_rec['jax_ad']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: participating media and the volumetric path integrator
+# ---------------------------------------------------------------------------
+
+VOL_DEPTH = 8
+
+
+def volpath_golden(dev):
+    """volpath.render of cornell_homogeneous against the reference
+    renderer's tests/golden/ref_volpath_hom.npz at its size and depth, 64 spp
+    Halton in 32-spp chunks: (block-8 error, largest channel-mean error),
+    both relative to the golden's mean."""
+    from gnxraytracer_tpu_torch.models.integrators import volpath
+    from gnxraytracer_tpu_torch.ops import samplers
+    from gnxraytracer_tpu_torch.scene import presets
+
+    z = np.load(os.path.join(HERE, "tests", "golden", "ref_volpath_hom.npz"))
+    ref, meta = z["image"], json.loads(str(z["meta"]))
+    w, h, spp = meta["w"], meta["h"], 64
+    scene, cam = presets.cornell_homogeneous(w, h, device=dev)
+    cfg = volpath.make_config(scene, w, h, spp=spp,
+                              max_depth=meta["max_depth"], spp_chunk=32,
+                              use_pallas=True)
+    smp = samplers.make_halton_sampler(spp, w, h, device=dev)
+    ours = volpath.render(scene, cam, smp, cfg).cpu().numpy()
+    check(np.isfinite(ours).all(), "ref_volpath_hom: the image is not finite")
+    berr = float(np.abs(block_mean8(ours) - block_mean8(ref)).mean()
+                 / ref.mean())
+    merr = float((np.abs(ours.mean((0, 1)) - ref.mean((0, 1)))
+                  / ref.mean()).max())
+    return berr, merr
+
+
+def medium_grad_golden(dev, spp=256, chunk=32, w=32, h=32):
+    """The port's AD of d(mean image)/d(theta), theta scaling sigma_a and
+    sigma_s of cornell_homogeneous, at theta = 1 (32x32, 256 spp Halton,
+    depth 8, volpath.render_chunk, each chunk differentiated on its own),
+    and the reference renderer's central FD (ref_grad_med_sigma)."""
+    from gnxraytracer_tpu_torch.models.integrators import volpath
+    from gnxraytracer_tpu_torch.ops import samplers
+    from gnxraytracer_tpu_torch.scene import presets
+
+    scene, cam = presets.cornell_homogeneous(w, h, device=dev)
+    cfg = volpath.make_config(scene, w, h, spp=spp, max_depth=8,
+                              spp_chunk=chunk, use_pallas=True)
+    smp = samplers.make_halton_sampler(spp, w, h, device=dev)
+    theta = torch.tensor(1.0, device=dev, requires_grad=True)
+    for s in range(0, spp, chunk):
+        sc = scene._replace(media=scene.media._replace(
+            sigma_a=scene.media.sigma_a * theta,
+            sigma_s=scene.media.sigma_s * theta))
+        img = volpath.render_chunk(sc, cam, smp, cfg, s, chunk)
+        (torch.mean(img) / spp).backward()
+    return float(theta.grad), oracle_fd("ref_grad_med_sigma")
+
+
+def phase_volpath(dev, ch, wb, pk):
+    """Phase 11: volpath.render of cornell_homogeneous at full width, the
+    volumetric golden and gradient golden, and a train step that moves the
+    medium classes."""
+    from gnxraytracer_tpu_torch.models.integrators import volpath
+    from gnxraytracer_tpu_torch.ops import samplers
+    from gnxraytracer_tpu_torch.parallel import sharding
+    from gnxraytracer_tpu_torch.scene import presets
+
+    # (a) volpath.render at 500x500, depth 8, Halton, 1M lanes a chunk
+    scene, cam = presets.cornell_homogeneous(WIDTH, HEIGHT, device=dev)
+    cfg = volpath.make_config(scene, WIDTH, HEIGHT, spp=SPP,
+                              max_depth=VOL_DEPTH, spp_chunk=SPP_CHUNK,
+                              use_pallas=True, count_rays=True)
+    smp = samplers.make_halton_sampler(SPP, WIDTH, HEIGHT, device=dev)
+    check(cfg.has_media and cfg.tr_walk_segments == 4 and not cfg.use_bvh,
+          f"volpath: unexpected config {cfg}")
+    volpath.render_chunk(scene, cam, smp, cfg, 0, SPP_CHUNK)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts(ch, wb, pk)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    img = volpath.render(scene, cam, smp, cfg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check_no_plain_brute("phase 11 volpath.render")
+    counts = all_counts(ch, wb, pk)
+    chunks = SPP // SPP_CHUNK
+    check(counts["closest_hit"] > 0 and counts["brute_any_hit"] == 0
+          and counts["wide_closest_hit"] == 0
+          and counts["packet_closest_hit"] == 0,
+          f"volpath: launches {counts}: every cast is a closest hit through "
+          "kernel 1 (the shadow rays walk the medium shells by closest hits)")
+    check(tuple(img.shape) == (HEIGHT, WIDTH, 3)
+          and bool(torch.isfinite(img).all()), "volpath: bad image")
+    mean = float(img.mean())
+    check(0.05 < mean < 5.0, f"volpath: image mean {mean}")
+    emit({"phase": "volpath", "scene": "cornell_homogeneous",
+          "entry": "volpath.render", "width": WIDTH, "height": HEIGHT,
+          "max_depth": VOL_DEPTH, "spp": SPP, "lanes_per_chunk":
+          WIDTH * HEIGHT * SPP_CHUNK, "chunks": chunks,
+          "ms_per_chunk": wall / chunks * 1e3,
+          "Mpaths_per_s": WIDTH * HEIGHT * SPP / wall / 1e6,
+          "image_mean": mean, "kernel_launches": counts,
+          "peak_device_MiB": torch.cuda.max_memory_allocated() / 2 ** 20})
+
+    # (b) the reference renderer's volumetric golden
+    reset_counts(ch, wb, pk)
+    berr, merr = volpath_golden(dev)
+    check_no_plain_brute("phase 11 ref_volpath_hom")
+    emit({"phase": "volpath", "what": "golden", "reference":
+          "tests/golden/ref_volpath_hom.npz", "sampler": "halton", "spp": 64,
+          "block8_rel_err": berr, "limit": 0.025, "channel_mean_rel_err": merr,
+          "mean_limit": 0.02, "kernel_launches": all_counts(ch, wb, pk)})
+    check(berr < 0.025, f"ref_volpath_hom: block8 error {berr}")
+    check(merr < 0.02, f"ref_volpath_hom: channel mean error {merr}")
+
+    # (c) the medium-sigma gradient golden
+    reset_counts(ch, wb, pk)
+    t0 = time.time()
+    ad, _fd = medium_grad_golden(dev)
+    check_no_plain_brute("phase 11 ref_grad_med_sigma")
+    check_gradient_golden("ref_grad_med_sigma", ad, 0.08, time.time() - t0,
+                          all_counts(ch, wb, pk))
+
+    # (d) one train step with volpath's estimator on every class, from
+    # doubled absorption toward the true image: the medium classes move
+    w = h = 128
+    sc, cm = presets.cornell_homogeneous(w, h, device=dev)
+    c = volpath.make_config(sc, w, h, spp=SPP_CHUNK, max_depth=VOL_DEPTH,
+                            spp_chunk=SPP_CHUNK, use_pallas=True)
+    s = samplers.make_halton_sampler(SPP_CHUNK, w, h, device=dev)
+    with torch.no_grad():
+        target = volpath.render(sc, cm, s, c)
+    p = sharding.extract_params(sc)
+    p = dict(p, med_sigma_a=p["med_sigma_a"] * 2.0)
+    step = sharding.make_train_step(c, integrator="volpath")
+    reset_counts(ch, wb, pk)
+    loss, new, stats, fwd, bwd, tot, peak = timed_steps(
+        step, p, sc, cm, s, target, lr=1.0, steps=1)
+    check_no_plain_brute("phase 11 train step")
+    counts = all_counts(ch, wb, pk)
+    check(bool(torch.isfinite(loss)), f"volpath train step: loss {loss}")
+    moved = check_step("volpath train step", p, new, stats,
+                       ("med_sigma_a", "med_sigma_s", "med_g"))
+    emit(step_record("train step, cornell_homogeneous, volpath (every class)",
+                     c, loss, stats, fwd, bwd, tot, peak, counts, moved))
 
 
 def main():
@@ -2049,6 +2588,8 @@ def main():
                 phase_profile(dev, mesh)
         phase_golden(dev)
         phase_goldens_halton(dev)
+        phase_gradients(dev, ch, wb, pk, mesh)
+        phase_volpath(dev, ch, wb, pk)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

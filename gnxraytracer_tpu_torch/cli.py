@@ -39,7 +39,7 @@ PRESETS = {
     "metal": "Cornell + the reference app's Metal/Plastic presets (parity twin)",
     "gridvol": "Cornell + GridDensityMedium from density_render.70.volume",
 }
-PORTED_PRESETS = ("cornell", "cornell-mesh", "sphere", "envmap")
+PORTED_PRESETS = ("cornell", "cornell-mesh", "sphere", "envmap", "gmd")
 
 
 def build_preset(name, width, height, device):
@@ -56,6 +56,8 @@ def build_preset(name, width, height, device):
         return presets.sphere_point_light(width, height, device=device)
     if name == "envmap":
         return presets.envmap_mesh(width, height, device=device)
+    if name == "gmd":
+        return presets.cornell_gmd(width, height, device=device)
     if name in PRESETS:
         raise SystemExit(
             f"preset {name!r} is not ported to PyTorch yet; ported presets: "
@@ -64,13 +66,10 @@ def build_preset(name, width, height, device):
 
 
 def get_integrator(name):
-    if name == "volpath":
-        raise SystemExit(
-            "integrator 'volpath' is not ported to PyTorch yet; ported: "
-            "path, whitted, direct")
-    from .models.integrators import direct, path, whitted
+    from .models.integrators import direct, path, volpath, whitted
 
-    return {"path": path, "whitted": whitted, "direct": direct}[name]
+    return {"path": path, "whitted": whitted, "direct": direct,
+            "volpath": volpath}[name]
 
 
 def cmd_render(args):

@@ -14,7 +14,8 @@ from .models.integrators.path import RenderCfg
 from .ops.samplers import Sampler, halton_sampler_from_tables
 from .scene.camera import Camera
 from .ops.bvh import bvh_from_numpy
-from .scene.scene import EnvMap, Geometry, LightTable, MaterialTable, Scene
+from .scene.scene import (EnvMap, Geometry, LightTable, MaterialTable,
+                          MediumTable, Scene)
 from .utils.device import resolve_device
 
 
@@ -34,7 +35,7 @@ def _table(cls, src, dev):
 def scene_from_numpy(tree, device="cuda"):
     """JAX-package Scene (numpy leaves) -> the port's Scene."""
     dev = resolve_device(device)
-    for field in ("media", "light_dist", "instanced"):
+    for field in ("light_dist", "instanced"):
         if getattr(tree, field, None) is not None:
             raise NotImplementedError(
                 f"scene.{field} is not ported yet and cannot be carried across")
@@ -51,7 +52,9 @@ def scene_from_numpy(tree, device="cuda"):
         geom=_table(Geometry, tree.geom, dev),
         materials=_table(MaterialTable, tree.materials, dev),
         lights=_table(LightTable, tree.lights, dev),
-        env=env, textures=textures, media=None,
+        env=env, textures=textures,
+        media=None if tree.media is None else _table(MediumTable, tree.media,
+                                                     dev),
         camera_medium=int(tree.camera_medium),
         world_center=_tensor(tree.world_center, dev),
         world_radius=_tensor(tree.world_radius, dev),
@@ -107,6 +110,13 @@ def sampler_from_numpy(smp, device="cuda"):
         raise ValueError(f"unknown sampler kind {smp.kind!r}")
     return Sampler(kind=smp.kind, spp=int(smp.spp), seed=int(smp.seed),
                    device=str(dev))
+
+
+def params_from_numpy(p, device="cuda"):
+    """The JAX package's extract_params dict (numpy leaves) -> the port's
+    (parallel/sharding.extract_params), tensors on `device`."""
+    dev = resolve_device(device)
+    return {k: _tensor(v, dev) for k, v in p.items()}
 
 
 def cfg_from_dict(d):

@@ -12,7 +12,7 @@ from ..constants import INV_PI
 from ..ops.sampling import cosine_sample_hemisphere
 from ..utils.math import (
     abs_cos_theta, cos_phi, cos_theta, refract, same_hemisphere, sin_phi,
-    sin_theta,
+    sin_theta, sqrt0,
 )
 
 # ---------------------------------------------------------------------------
@@ -26,13 +26,13 @@ def fr_dielectric(cos_theta_i, eta_i, eta_t):
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
     ci = torch.abs(ci)
-    si = torch.sqrt(torch.clamp(1.0 - ci * ci, min=0.0))
+    si = sqrt0(1.0 - ci * ci)
     st = ei / et * si
     tir = st >= 1.0
     # sanitize BEFORE the sqrt: at (or beyond) total internal reflection
     # 1-st^2 <= 0 and sqrt's derivative w.r.t. eta is infinite
     sts = torch.where(tir, 0.0, st)
-    ct = torch.sqrt(torch.clamp(1.0 - sts * sts, min=0.0))
+    ct = sqrt0(1.0 - sts * sts)
     d_parl = et * ci + ei * ct
     d_perp = ei * ci + et * ct
     r_parl = (et * ci - ei * ct) / torch.where(d_parl == 0, 1.0, d_parl)
@@ -54,9 +54,9 @@ def fr_conductor(cos_theta_i, eta_i, eta_t, k):
     eta2 = eta * eta
     etak2 = etak * etak
     t0 = eta2 - etak2 - sin2
-    a2b2 = torch.sqrt(torch.clamp(t0 * t0 + 4.0 * eta2 * etak2, min=0.0))
+    a2b2 = sqrt0(t0 * t0 + 4.0 * eta2 * etak2)
     t1 = a2b2 + cos2
-    a = torch.sqrt(torch.clamp(0.5 * (a2b2 + t0), min=0.0))
+    a = sqrt0(0.5 * (a2b2 + t0))
     t2 = 2.0 * a * ci
     rs = (t1 - t2) / (t1 + t2)
     t3 = cos2 * a2b2 + sin2 * sin2

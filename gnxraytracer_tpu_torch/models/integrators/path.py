@@ -147,6 +147,10 @@ def make_config(scene, width, height, spp, **kw):
     # below 32k triangles, a threshold measured on the TPU; the brute-force
     # any-hit here is a Python loop over triangles).  Override with use_bvh.
     kw.setdefault("use_bvh", scene.bvh is not None)
+    if scene.media is not None:
+        # shadow rays walk the null-material medium shells (medium Tr through
+        # each); without the walk they take the shells for opaque occluders
+        kw.setdefault("tr_walk_segments", 4)
     if kw.get("use_bvh") and "bvh_mode" not in kw:
         # the hand-written kernels where the scene lies on a CUDA device, the
         # plain walk elsewhere
@@ -165,7 +169,8 @@ def make_config(scene, width, height, spp, **kw):
         n_big=(0 if scene.big_tri_idx is None
                else int(scene.big_tri_idx.shape[0])),
         n_lights=int(scene.lights.kind.shape[0]),
-        has_media=False, has_textures=scene.textures is not None,
+        has_media=scene.media is not None,
+        has_textures=scene.textures is not None,
         has_bump=False,
         n_inst=0, n_inst_tris=0,
         **kw,
@@ -219,16 +224,12 @@ def estimate_direct(scene, cfg, it, wo_local, u_light, u_scatter, light_idx,
     heuristic.
 
     mats_row: optional pre-gathered per-lane MaterialTable.
-    vis_fn: must be None (it is the participating-media hook of the JAX
-    package, which is not ported yet).
+    vis_fn: optional (o, d, t_max) -> (occluded (N,), tr (N,3)) replacing
+    the binary shadow cast: the volumetric integrator's transmittance walk.
     mask: optional (N,) bool — lanes whose result will actually be used; the
     two scene casts get t_max = 0 outside it, so the walks skip those lanes
     (the caller's downstream where-mask makes the values irrelevant).
     Returns (N,3) direct radiance (before division by light-select pdf)."""
-    if vis_fn is not None:
-        raise NotImplementedError(
-            "estimate_direct(vis_fn=...) serves participating media, which "
-            "are not ported yet")
     n = it.p.shape[0]
     dev = it.p.device
     if mats_row is None:
@@ -250,11 +251,17 @@ def estimate_direct(scene, cfg, it, wo_local, u_light, u_scatter, light_idx,
     # visibility (shadow ray) only where it can matter
     so, sd, st = trace.shadow_ray(it, ls.target, ls.is_infinite)
     st = torch.where(contrib_possible, st, 0.0)
-    occluded = trace.scene_occluded(scene, cfg, so, sd, st)
+    if vis_fn is not None:
+        occluded, tr_vis = vis_fn(so, sd, st)
+    else:
+        occluded = trace.scene_occluded(scene, cfg, so, sd, st)
+        tr_vis = None
     vis = contrib_possible & ~occluded
     w_l = torch.where(ls.is_delta, 1.0,
                       power_heuristic(1.0, ls.pdf, 1.0, scat_pdf))
     ld_light = f_light * ls.li * (w_l / torch.clamp(ls.pdf, min=1e-12))[..., None]
+    if tr_vis is not None:
+        ld_light = ld_light * tr_vis
     ld = torch.where(vis[..., None], ld_light, 0.0)
 
     # ---- strategy 2: sample the BSDF (non-delta lights only) --------------

@@ -11,8 +11,9 @@ import torch
 from ..constants import PI
 from ..scene.scene import MAT_DISNEY, MAT_GLASS, MAT_METAL, MAT_PLASTIC
 from ..utils.math import (
-    abs_cos_theta, cos2_phi, cos_phi, cos_theta, cross, normalize, reflect,
-    refract, same_hemisphere, sin2_phi, sin_phi, tan2_theta, tan_theta,
+    abs_cos_theta, cos2_phi, cos2_theta, cos_phi, cos_theta, cross, normalize,
+    reflect, refract, same_hemisphere, sin2_phi, sin2_theta, sin_phi,
+    sin_theta, tan2_theta, tan_theta,
 )
 from . import bxdf
 from .materials import _g
@@ -38,23 +39,39 @@ def roughness_to_alpha(roughness):
 # propagates NaN into parameter gradients (0 * inf).  So the degenerate
 # operand is sanitized BEFORE the arithmetic, and the result masked after.
 
+def _tan2_ok(w):
+    """(tan^2 theta where the JAX package's masks let it through, else 0;
+    that mask).  The mask is taken on the plain tan2_theta, and the division
+    is made only where it holds: at cos(theta) = 0 the plain quotient is
+    inf, and its backward turns the masked zero gradient into NaN (a 1M-lane
+    mesh step on an H100 met such a half vector)."""
+    with torch.no_grad():
+        ok = torch.isfinite(tan2_theta(w)) & ((cos_theta(w) ** 2) ** 2 > 1e-16)
+    return torch.where(
+        ok, sin2_theta(w) / torch.where(ok, cos2_theta(w), 1.0), 0.0), ok
+
+
+def _abs_tan_ok(w):
+    """(|tan theta| where it is finite, else 0; that mask), with the same
+    care as _tan2_ok."""
+    with torch.no_grad():
+        ok = torch.isfinite(torch.abs(tan_theta(w)))
+    return torch.where(ok, torch.abs(
+        sin_theta(w) / torch.where(ok, w[..., 2], 1.0)), 0.0), ok
+
+
 def tr_d(wh, ax, ay):
     """GGX anisotropic D."""
-    t2 = tan2_theta(wh)
+    t2s, ok = _tan2_ok(wh)
     c2 = cos_theta(wh) ** 2
-    c4 = c2 * c2
-    ok = torch.isfinite(t2) & (c4 > 1e-16)
-    t2s = torch.where(ok, t2, 0.0)
-    c4s = torch.where(ok, c4, 1.0)
+    c4s = torch.where(ok, c2 * c2, 1.0)
     e = (cos2_phi(wh) / (ax * ax) + sin2_phi(wh) / (ay * ay)) * t2s
     d = 1.0 / (PI * ax * ay * c4s * (1.0 + e) ** 2)
     return torch.where(ok, d, 0.0)
 
 
 def tr_lambda(w, ax, ay):
-    abs_tan = torch.abs(tan_theta(w))
-    ok = torch.isfinite(abs_tan)
-    at = torch.where(ok, abs_tan, 0.0)
+    at, ok = _abs_tan_ok(w)
     # clamp: a zero-vector lane has cos2_phi == sin2_phi == 0 and sqrt(0)
     # has an infinite derivative w.r.t. ax/ay
     alpha = torch.sqrt(torch.clamp(
@@ -65,12 +82,9 @@ def tr_lambda(w, ax, ay):
 
 
 def beckmann_d(wh, ax, ay):
-    t2 = tan2_theta(wh)
+    t2s, ok = _tan2_ok(wh)
     c2 = cos_theta(wh) ** 2
-    c4 = c2 * c2
-    ok = torch.isfinite(t2) & (c4 > 1e-16)
-    t2s = torch.where(ok, t2, 0.0)
-    c4s = torch.where(ok, c4, 1.0)
+    c4s = torch.where(ok, c2 * c2, 1.0)
     d = torch.exp(-t2s * (cos2_phi(wh) / (ax * ax) + sin2_phi(wh) / (ay * ay))) / (
         PI * ax * ay * c4s
     )
@@ -78,9 +92,8 @@ def beckmann_d(wh, ax, ay):
 
 
 def beckmann_lambda(w, ax, ay):
-    abs_tan = torch.abs(tan_theta(w))
-    ok = torch.isfinite(abs_tan)
-    at = torch.where(ok, abs_tan, 1.0)
+    at, ok = _abs_tan_ok(w)
+    at = torch.where(ok, at, 1.0)
     alpha = torch.sqrt(torch.clamp(
         cos2_phi(w) * ax * ax + sin2_phi(w) * ay * ay, min=1e-12))
     a = 1.0 / torch.clamp(alpha * at, min=1e-8)

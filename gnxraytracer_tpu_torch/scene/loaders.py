@@ -1,6 +1,6 @@
-"""Procedural meshes: the stand-ins for the reference renderer's high-poly
-assets.  The '.3d' mesh and '.volume' grid parsers of the JAX package wait
-for the slices that load such files.
+"""Procedural meshes, the stand-ins for the reference renderer's high-poly
+assets, and the parser of its '.volume' density grids.  The '.3d' mesh
+parser of the JAX package waits for the slice that loads such files.
 """
 
 import numpy as np
@@ -77,3 +77,40 @@ def make_blob_mesh(n_seg=229):
         np.add.at(n, f[:, k], fn)
     n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
     return v, f, n.astype(np.float32), uv
+
+
+def load_volume(path):
+    """Load a '.volume' density grid of the reference renderer.  The format
+    is text: a line "nx X ny Y nz Z", optional lines "p0 x y z", "p1 x y z"
+    (grid bounds), "sigma_a a a a", "sigma_s s s s", then nx*ny*nz density
+    values, whitespace separated, x fastest.
+
+    Returns dict(density (nz, ny, nx) float32, p0, p1, sigma_a, sigma_s)."""
+    with open(path, "rb") as f:
+        txt = f.read().decode("ascii", errors="replace")
+    lines = txt.replace("\r\n", "\n").split("\n")
+    header = {}
+    data_start = 0
+    for i, line in enumerate(lines):
+        tok = line.split()
+        if not tok:
+            continue
+        if tok[0] == "nx":
+            header["nx"], header["ny"], header["nz"] = (
+                int(tok[1]), int(tok[3]), int(tok[5]))
+        elif tok[0] in ("p0", "p1", "sigma_a", "sigma_s"):
+            header[tok[0]] = np.asarray([float(x) for x in tok[1:4]],
+                                        np.float32)
+        else:
+            data_start = i
+            break
+    nx, ny, nz = header["nx"], header["ny"], header["nz"]
+    vals = np.asarray(" ".join(lines[data_start:]).split(), dtype=np.float32)
+    density = vals[:nx * ny * nz].reshape(nz, ny, nx)
+    return dict(
+        density=density,
+        p0=header.get("p0", np.zeros(3, np.float32)),
+        p1=header.get("p1", np.ones(3, np.float32)),
+        sigma_a=header.get("sigma_a", np.ones(3, np.float32)),
+        sigma_s=header.get("sigma_s", np.ones(3, np.float32)),
+    )

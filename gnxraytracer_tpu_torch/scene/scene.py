@@ -6,9 +6,10 @@ by id.  Field names are those of the JAX package's scene tables, so state
 carries across by name (see convert.py).
 
 Ported so far: triangle meshes, spheres, every material kind, point / spot /
-distant / area / environment-map / skybox lights, image textures, and the SAH
-BVH build (with big-prim separation).  The LBVH build, media and instancing
-raise NotImplementedError.
+distant / area / environment-map / skybox lights, image textures,
+homogeneous and grid media behind null-material boundaries, and the SAH BVH
+build (with big-prim separation).  The LBVH build and instancing raise
+NotImplementedError.
 """
 
 from typing import NamedTuple, Optional
@@ -48,6 +49,18 @@ class Geometry(NamedTuple):
     sph_mat: torch.Tensor         # (S,) i32
     sph_light: torch.Tensor       # (S,) i32
     sph_medium: torch.Tensor      # (S,2) i32 [inside, outside]
+
+
+class MediumTable(NamedTuple):
+    """Participating media.  kind 0 = homogeneous; kind 1 = grid density
+    (the rows of kind 1 share the scene's one grid)."""
+    kind: torch.Tensor      # (K,) i32
+    sigma_a: torch.Tensor   # (K,3)
+    sigma_s: torch.Tensor   # (K,3)
+    g: torch.Tensor         # (K,) Henyey-Greenstein asymmetry
+    density: Optional[torch.Tensor]   # (nz,ny,nx) or None
+    world_to_medium: torch.Tensor     # (K,4,4)
+    inv_max_density: torch.Tensor     # (K,)
 
 
 class MaterialTable(NamedTuple):
@@ -122,7 +135,7 @@ class Scene(NamedTuple):
     lights: LightTable
     env: Optional[EnvMap]
     textures: Optional[tuple]  # (atlas, level offsets, level sizes) or None
-    media: Optional[tuple]     # participating media: not ported, always None
+    media: Optional[MediumTable]
     camera_medium: int
     world_center: torch.Tensor  # (3,)
     world_radius: torch.Tensor  # ()
@@ -183,6 +196,7 @@ class SceneBuilder:
         self.tri_light = []
         self.tri_medium = []
         self.sph = []  # (center, radius, mat, light, medium)
+        self.media = []  # dicts
         self.materials = []  # dicts
         self.lights = []  # dicts
         self.textures = []  # host images for the mip atlas
@@ -192,13 +206,32 @@ class SceneBuilder:
         self._has_normals = False
         self._has_uvs = False
 
+    # -- media ---------------------------------------------------------------
+
+    def add_homogeneous_medium(self, sigma_a, sigma_s, g=0.0):
+        """A homogeneous medium; returns its id for the medium=(inside,
+        outside) interfaces of add_mesh / add_sphere."""
+        self.media.append(dict(kind=0, sigma_a=_v3(sigma_a),
+                               sigma_s=_v3(sigma_s), g=float(g), density=None,
+                               world_to_medium=np.eye(4, dtype=np.float32)))
+        return len(self.media) - 1
+
+    def add_grid_medium(self, density, sigma_a, sigma_s, g=0.0,
+                        medium_to_world=None):
+        """A grid medium: density (nz,ny,nx) over [0,1]^3 in medium space
+        (placed by medium_to_world), sigma_t scaled by the trilinear
+        density.  A scene holds one grid."""
+        if medium_to_world is None:
+            medium_to_world = np.eye(4)
+        w2m = np.linalg.inv(np.asarray(medium_to_world, np.float64)).astype(
+            np.float32)
+        self.media.append(dict(kind=1, sigma_a=_v3(sigma_a),
+                               sigma_s=_v3(sigma_s), g=float(g),
+                               density=np.asarray(density, np.float32),
+                               world_to_medium=w2m))
+        return len(self.media) - 1
+
     # -- not ported yet ------------------------------------------------------
-
-    def add_homogeneous_medium(self, *a, **kw):
-        raise NotImplementedError("participating media are not ported yet")
-
-    def add_grid_medium(self, *a, **kw):
-        raise NotImplementedError("participating media are not ported yet")
 
     def add_instances(self, *a, **kw):
         raise NotImplementedError("instancing is not ported yet")
@@ -440,6 +473,27 @@ class SceneBuilder:
 
             textures = build_texture_atlas(self.textures, device=dev)
 
+        media = None
+        if self.media:
+            grid = None
+            inv_max = []
+            for m in self.media:
+                if m["density"] is not None:
+                    grid = m["density"]
+                    inv_max.append(1.0 / max(float(grid.max()), 1e-8))
+                else:
+                    inv_max.append(1.0)
+            media = MediumTable(
+                kind=put(np.asarray([m["kind"] for m in self.media], np.int32)),
+                sigma_a=put(np.stack([m["sigma_a"] for m in self.media])),
+                sigma_s=put(np.stack([m["sigma_s"] for m in self.media])),
+                g=put(np.asarray([m["g"] for m in self.media], np.float32)),
+                density=None if grid is None else put(grid),
+                world_to_medium=put(np.stack(
+                    [m["world_to_medium"] for m in self.media])),
+                inv_max_density=put(np.asarray(inv_max, np.float32)),
+            )
+
         bvh_tables = None
         big_idx = None
         if bvh:
@@ -462,7 +516,7 @@ class SceneBuilder:
 
         scene = Scene(
             geom=geom, materials=mat, lights=lights, env=env,
-            textures=textures, media=None, camera_medium=self.camera_medium,
+            textures=textures, media=media, camera_medium=self.camera_medium,
             world_center=torch.tensor(center, dtype=torch.float32, device=dev),
             world_radius=torch.tensor(max(radius, 1e-3), dtype=torch.float32,
                                       device=dev),

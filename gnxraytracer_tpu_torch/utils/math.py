@@ -22,6 +22,16 @@ def length_squared(v):
     return torch.sum(v * v, dim=-1)
 
 
+def sqrt0(x):
+    """sqrt(max(x, 0)) with a zero gradient where x <= 0.  The plain sqrt's
+    derivative is infinite at 0, and the zero gradient that a masking
+    where() (or a factor that vanishes there) sends back becomes NaN
+    (0 * inf) in every parameter upstream.  The values are
+    torch.sqrt(torch.clamp(x, min=0))'s, bit for bit."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def length(v):
     return torch.sqrt(length_squared(v))
 
@@ -83,7 +93,7 @@ def refract(wi, n, eta):
     # sanitize before the sqrt: past TIR 1-sin2 <= 0 and sqrt's derivative
     # w.r.t. eta is infinite
     s2s = torch.where(ok, sin2_theta_t, 0.0)
-    cos_theta_t = torch.sqrt(torch.clamp(1.0 - s2s, min=0.0))
+    cos_theta_t = sqrt0(1.0 - s2s)
     wt = eta[..., None] * -wi + (eta * cos_theta_i - cos_theta_t)[..., None] * n
     return ok, wt
 
@@ -115,7 +125,7 @@ def sin2_theta(w):
 
 
 def sin_theta(w):
-    return torch.sqrt(sin2_theta(w))
+    return sqrt0(sin2_theta(w))
 
 
 def tan_theta(w):

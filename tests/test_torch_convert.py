@@ -326,8 +326,15 @@ def test_unported_state_is_refused():
     b.add_sphere((0, 0, 0), 1.0, b.add_matte((0.5, 0.5, 0.5)),
                  medium=(med, -1))
     b.add_point_light((0, 3, 0), (10, 10, 10))
-    with pytest.raises(NotImplementedError):
-        convert.scene_from_numpy(np_tree(b.build()), device="cpu")
+    tree = np_tree(b.build())
+    # media cross over since the volumetric slice; the spatial light
+    # distribution and instancing are refused
+    got = convert.scene_from_numpy(tree, device="cpu")
+    assert_tables_equal(got.media, tree.media, "scene.media")
+    for field in ("light_dist", "instanced"):
+        with pytest.raises(NotImplementedError, match=field):
+            convert.scene_from_numpy(tree._replace(**{field: ("x",)}),
+                                     device="cpu")
     # a tree without octant links (the on-device morton build)
     js, _ = J_presets.cornell_box(16, 16, bvh=True)
     with pytest.raises(NotImplementedError):

@@ -56,7 +56,9 @@ def test_every_module_is_found():
                  "ops.texture", "ops.sampling", "models.integrators.path",
                  "models.integrators.whitted", "models.integrators.direct",
                  "models.lights", "models.microfacet", "models.disney",
-                 "scene.presets", "scene.loaders", "utils.image"):
+                 "models.media", "models.integrators.volpath",
+                 "parallel.sharding", "scene.presets", "scene.loaders",
+                 "utils.image"):
         assert f"gnxraytracer_tpu_torch.{want}" in mods
 
 
@@ -250,11 +252,12 @@ def test_cli_default_flags_run(integrator, tmp_path, capsys):
 
 
 def test_cli_integrators_are_the_modules():
+    from gnxraytracer_tpu_torch.models.integrators import volpath as T_vol
+
     assert cli.get_integrator("path") is T_path
     assert cli.get_integrator("whitted") is T_whitted
     assert cli.get_integrator("direct") is T_direct
-    with pytest.raises(SystemExit, match="not ported"):
-        cli.get_integrator("volpath")
+    assert cli.get_integrator("volpath") is T_vol
 
 
 def test_cli_whitted_on_the_mesh_preset_takes_either_walk(tmp_path, monkeypatch):
@@ -286,7 +289,7 @@ def test_cli_resume_from_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--integrator", "volpath"], "volpath"),
+    (["--sampler", "sobol", "--fast-mis", "--preset", "metal"], "metal"),
     (["--live", "x.png"], "--live"),
     (["--sampler", "sobol", "--fast-mis", "--preset", "volume"], "volume"),
     (["--sampler", "sobol", "--fast-mis", "--preset", "cornell-glass"],
@@ -361,11 +364,7 @@ def _builder_calls():
     b = T_scene.SceneBuilder
     return {
         "build(bvh='lbvh')": lambda: b().build(bvh="lbvh", device="cpu"),
-        "add_homogeneous_medium": lambda: b().add_homogeneous_medium(1, 1),
-        "add_grid_medium": lambda: b().add_grid_medium(np.zeros((2, 2, 2)), 1, 1),
         "add_instances": lambda: b().add_instances(),
-        "estimate_direct(vis_fn)": lambda: T_path.estimate_direct(
-            None, None, None, None, None, None, None, vis_fn=print),
     }
 
 
@@ -408,7 +407,21 @@ def _ported_builder_calls():
         "generate_ray_differentials": rd,
         "make_halton_sampler": lambda: T_smp.make_halton_sampler(
             4, 8, 8, device="cpu"),
+        "add_homogeneous_medium": lambda: media_scene().media,
+        "add_grid_medium": lambda: media_scene(grid=True).media.density,
     }
+
+
+def media_scene(grid=False):
+    """A sphere behind a null-material box holding a medium: what the
+    volumetric slice brought (refused before it)."""
+    b = T_scene.SceneBuilder()
+    med = (b.add_grid_medium(np.ones((2, 2, 2)), 1, 1) if grid
+           else b.add_homogeneous_medium(1, 1))
+    vi, fi = T_presets._box_mesh((-1, -1, -1), (1, 1, 1))
+    b.add_mesh(vi, fi, material=-1, medium=(med, -1))
+    b.add_point_light((0, 3, 0), (10, 10, 10))
+    return b.build(device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(_ported_builder_calls()))
@@ -500,11 +513,8 @@ def test_unported_trace_branches_raise():
     for cast in (T_trace.scene_intersect, T_trace.scene_occluded):
         with pytest.raises(ValueError, match="bvh=True"):
             cast(scene, cfg._replace(use_bvh=True), o, d, t)
-    # the faithful estimator runs now; what it still refuses is the
-    # participating-media hook and the spatial light distribution
-    with pytest.raises(NotImplementedError):
-        T_path.estimate_direct(scene, cfg, None, None, None, None, None,
-                               vis_fn=lambda o, d, t: None)
+    # the faithful estimator and its participating-media hook run now; what
+    # it still refuses is the spatial light distribution
     with pytest.raises(NotImplementedError):
         T_path._choose_light(scene, cfg._replace(light_strategy="spatial"),
                              torch.zeros(4))

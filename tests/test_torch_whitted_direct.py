@@ -308,11 +308,37 @@ def test_estimate_direct_matches_jax(fixed, with_mask):
 
 
 def test_estimate_direct_refuses_the_media_hook(fixed):
+    """The participating-media hook, refused before the volumetric slice,
+    runs now: a vis_fn that blocks nothing with Tr = 1 gives the binary
+    shadow cast's result wherever that cast finds no blocker, and Tr = 0.5
+    halves the light-sample strategy's share there (the JAX package's
+    estimate_direct with the same vis_fn, lane for lane)."""
     f = fixed
-    with pytest.raises(NotImplementedError, match="media"):
-        T_path.estimate_direct(
-            f["ts"], f["tcfg"], f["tit"], None, None, None, None,
-            vis_fn=lambda o, d, t: None)
+    n = f["u"].shape[0]
+    wo = T_trace.to_local(f["tit"], f["tit"].wo)
+    args = (f["ts"], f["tcfg"], f["tit"], wo,
+            torch.from_numpy(f["u"][:, 0:2]), torch.from_numpy(f["u"][:, 2:4]),
+            torch.zeros((n,), dtype=torch.int32))
+    base = T_path.estimate_direct(*args)
+    for tr in (1.0, 0.5):
+        def vis_fn(o, d, t, tr=tr):
+            return (T_trace.scene_occluded(f["ts"], f["tcfg"], o, d, t),
+                    torch.full((o.shape[0], 3), tr))
+        got = T_path.estimate_direct(*args, vis_fn=vis_fn)
+        jvis = (lambda o, d, t, tr=tr: (
+            J_trace.scene_occluded(f["js"], f["jcfg"], o, d, t),
+            jnp.full((o.shape[0], 3), tr)))
+        want = J_path.estimate_direct(
+            f["js"], f["jcfg"], f["jit"],
+            J_trace.to_local(f["jit"], f["jit"].wo),
+            jnp.asarray(f["u"][:, 0:2]), jnp.asarray(f["u"][:, 2:4]),
+            jnp.zeros((n,), jnp.int32), vis_fn=jvis)
+        use = f["hit"]
+        close = np.isclose(got.numpy()[use], np.asarray(want)[use],
+                           rtol=1e-5, atol=1e-6).all(-1)
+        assert close.mean() >= 0.995
+        if tr == 1.0:
+            np.testing.assert_array_equal(got.numpy(), base.numpy())
 
 
 def test_pdf_li_matches_jax_on_every_light_kind(fixed):
