@@ -72,10 +72,32 @@ the CPU or to a plain version:
               ref_volpath_hom image and ref_grad_med_sigma gradient; a
               train step with volpath's estimator that moves the medium
               classes
+ 12. scene features, at the Cornell main path's configuration of phase 4
+              and with GNX_WIDE_BVH unset: (a) presets.cornell_instanced
+              (three boxes, each instance walking the box's own tree through
+              the binary threaded-BVH kernels, the walls through the
+              brute-force ones) against its flattened twin, the same without
+              the tree (instances through the brute-force kernels), and the
+              brute-force kernels on the instance-space rays against their
+              plain versions; (b) four instances of the 20,480-triangle mesh
+              against the flattened twin (one SAH tree, the wide kernels),
+              and its object-space camera, bounce and shadow rays through
+              the binary kernels against the plain walk; (c) the LBVH built
+              on the card over the 104,882-triangle blob (every box holds
+              its children's; build seconds beside the SAH build's), 1M
+              camera rays and their shadow rays through both trees (the
+              same hits, t and occlusion), one chunk of the mesh Cornell box
+              on an LBVH; (d) the CLI's metal, cornell-glass and volume
+              presets, the reference renderer's ref_metal_cornell and
+              ref_gmd_cornell goldens, the plastic-roughness and glass-eta
+              gradients through the kernels; (e) the spatial light
+              distribution against the uniform strategy, a bump-mapped quad
+              against the flat one.  No plain brute-force cast and no plain
+              binary walk on any of these paths
 
 Launch counts are set to 0 just before each main path is driven and read
-just after; so are the calls of the brute-force casts' plain versions, which
-must stay 0 on the card.  Every phase prints one JSON object on a line of its own.  The
+just after; so are the calls of the brute-force casts' plain versions (and,
+in phase 12, of the binary walk's), which must stay 0 on the card.  Every phase prints one JSON object on a line of its own.  The
 line before the last is the {"kernels": [...]} record, the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1138,31 +1160,45 @@ def main_path_setup(dev):
 # the plain casts of ops/intersect.py call them too), counted from
 # count_plain_calls on: a main path on the card makes none
 PLAIN_CALLS = {"closest_hit_reference": 0, "any_hit_reference": 0}
+# calls of the binary walk's plain versions (kernels/packet_bvh.py), counted
+# alike; phase 12's paths, whose instances walk their trees through kernels
+# 4 and 5 on the card, make none
+PLAIN_WALK_CALLS = {"packet_closest_hit_reference": 0,
+                    "packet_any_hit_reference": 0}
 
 
 def count_plain_calls(ch):
-    for name in PLAIN_CALLS:
-        def counted(*a, _fn=getattr(ch, name), _name=name, **kw):
-            PLAIN_CALLS[_name] += 1
-            return _fn(*a, **kw)
-        setattr(ch, name, counted)
+    from gnxraytracer_tpu_torch.kernels import packet_bvh as pk
+
+    for mod, calls in ((ch, PLAIN_CALLS), (pk, PLAIN_WALK_CALLS)):
+        for name in calls:
+            def counted(*a, _fn=getattr(mod, name), _name=name, _calls=calls,
+                        **kw):
+                _calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(mod, name, counted)
 
 
 def reset_counts(ch, wb, pk):
     ch.reset_launch_count()
     wb.reset_launch_counts()
     pk.reset_launch_counts()
-    for name in PLAIN_CALLS:
-        PLAIN_CALLS[name] = 0
+    for calls in (PLAIN_CALLS, PLAIN_WALK_CALLS):
+        for name in calls:
+            calls[name] = 0
 
 
 def brute_counts(ch):
     return (ch.launch_count, ch.any_launch_count)
 
 
-def check_no_plain_brute(what):
+def check_no_plain_brute(what, walks=False):
+    """Fails if a brute-force cast (with walks, also a binary-BVH cast) took
+    its plain version since the last reset_counts."""
     check(not any(PLAIN_CALLS.values()),
           f"{what}: a brute-force cast took its plain version {PLAIN_CALLS}")
+    check(not walks or not any(PLAIN_WALK_CALLS.values()),
+          f"{what}: a binary-BVH cast took its plain walk {PLAIN_WALK_CALLS}")
 
 
 def packet_counts(pk):
@@ -2521,6 +2557,549 @@ def phase_volpath(dev, ch, wb, pk):
                      c, loss, stats, fwd, bwd, tot, peak, counts, moved))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: instancing, the LBVH build, the Metal / Plastic / glass presets,
+# bump maps and the spatial light distribution
+# ---------------------------------------------------------------------------
+
+# the four transforms of the instanced mesh (make_test_mesh(5), radius about
+# 1.3): rotation about y and x, scale (1.15x more in y) and translation, side
+# by side on the Cornell box's floor
+def mesh_instance_transforms():
+    from gnxraytracer_tpu_torch.scene import presets
+
+    out = []
+    for i in range(4):
+        s = 0.5 + 0.05 * i
+        m = presets._rot_y(35.0 * i + 10.0) @ presets._rot_x(15.0 * i) @ \
+            np.diag([s, 1.15 * s, s, 1.0])
+        m = presets._translate([-1.5 + 1.0 * i, -2.5 + 1.6 * s,
+                                -0.6 + 0.35 * i]) @ m
+        out.append(m.astype(np.float32))
+    return np.stack(out)
+
+
+def instanced_mesh_scene(dev, flatten):
+    """The Cornell box (walls, area light, skybox) with four instances of
+    make_test_mesh(5) in the dragon material, each instance walking the
+    base mesh's own tree (81,920 instanced triangles); flatten=True adds the
+    four copies to the scene's triangles instead (add_mesh with the same
+    transforms) and builds the scene's tree over them."""
+    from gnxraytracer_tpu_torch.scene import presets
+    from gnxraytracer_tpu_torch.scene.camera import make_perspective_camera
+    from gnxraytracer_tpu_torch.scene.loaders import make_test_mesh
+    from gnxraytracer_tpu_torch.scene.scene import SceneBuilder
+
+    b = SceneBuilder()
+    mats = presets.reference_materials(b)
+    presets.add_cornell(b, mats["red"], mats["blue"], mats["white"])
+    presets.add_area_lights(b, mats["dragon"])
+    v, f = make_test_mesh(5)
+    xf = mesh_instance_transforms()
+    if flatten:
+        for m in xf:
+            b.add_mesh(v, f, mats["dragon"], transform=m)
+    else:
+        b.add_instances(v, f, xf, material=mats["dragon"], bvh=True)
+    b.add_skybox_light()
+    t0 = time.time()
+    scene = b.build(bvh=flatten, device=dev)
+    build_s = time.time() - t0
+    cam = make_perspective_camera(WIDTH, HEIGHT, eye=(0.0, 0.0, 5.0),
+                                  look=(0.0, 0.0, 0.0), device=dev)
+    return scene, cam, build_s
+
+
+def main_cfg(scene, **kw):
+    """The Cornell main path's configuration of phase 4 (500x500, depth 8,
+    Sobol', 1M lanes a chunk, fast_mis, compact_tail, 8 spp).  The kernels
+    are make_config's own choice for a scene on the card (use_pallas, and
+    bvh_mode "pallas" with a tree): no flag here asks for them."""
+    from gnxraytracer_tpu_torch.models.integrators import path
+
+    cfg = path.make_config(scene, WIDTH, HEIGHT, spp=SPP, max_depth=MAX_DEPTH,
+                           spp_chunk=SPP_CHUNK, rr_threshold=1.0,
+                           fast_mis=True, compact_tail=True, count_rays=True,
+                           **kw)
+    check(cfg.use_pallas and (cfg.bvh_mode == "pallas" or not cfg.use_bvh),
+          f"make_config did not pick the kernels on the card: {cfg}")
+    return cfg
+
+
+def counted_render(ch, wb, pk, scene, cam, cfg, what):
+    """A warm-up chunk, then the counts to 0 and path.render: (image, ms per
+    chunk, every kernel's launches); fails if a brute-force cast or the
+    binary walk took its plain version, or the image is bad."""
+    from gnxraytracer_tpu_torch.models.integrators import path
+    from gnxraytracer_tpu_torch.ops import samplers
+
+    smp = samplers.make_sobol_sampler(cfg.spp, device=scene.device)
+    img, ms, _, _ = timed_render(path, scene, cam, smp, cfg,
+                                 reset=functools.partial(reset_counts, ch, wb,
+                                                         pk))
+    check_no_plain_brute(what, walks=True)
+    return img, ms, all_counts(ch, wb, pk)
+
+
+def twin_agreement(what, img, flat):
+    """The JAX instancing test's rule: under 1% of pixels off by more than
+    1e-3, image means within 5e-3 relative."""
+    diff = (img - flat).abs().amax(-1)
+    frac = float((diff > 1e-3).float().mean())
+    rel = abs(float(img.mean()) / float(flat.mean()) - 1.0)
+    check(frac < 0.01 and rel < 5e-3, f"{what}: {frac} of the pixels differ "
+          f"from the flattened twin's by more than 1e-3, means {rel} apart")
+    return {"pixels_off_1e-3": frac, "pixels_limit": 0.01,
+            "mean_rel_diff": rel, "mean_limit": 5e-3}
+
+
+def object_space(table, o, d, parts):
+    """World rays through each instance's world-to-object matrix, the i-th
+    of `parts` equal runs of rays through instance i: the rays the kernels
+    get from ops/instancing (direction not normalized)."""
+    from gnxraytracer_tpu_torch.ops import instancing
+
+    n = o.shape[0]
+    oo, do = torch.empty_like(o), torch.empty_like(d)
+    step = -(-n // parts)
+    for i in range(parts):
+        sl = slice(i * step, min(n, (i + 1) * step))
+        oo[sl], do[sl] = instancing._xform_ray(table.world_to_obj[i], o[sl],
+                                               d[sl])
+    return oo.contiguous(), do.contiguous()
+
+
+def instance_cast(label, kind, fn, plain, pack, o, d, t, flush, sub_n=None):
+    """One set of instance-space rays through a kernel wrapper against its
+    plain version (on sub_n of them, or all): hit, tri, t, b bit-equal (occ
+    identical for any hit), the kernel's device time and the wrapper's."""
+    n = o.shape[0]
+    sub = torch.arange(0, n, max(n // (sub_n or n), 1), device=o.device)
+    sub = sub[:sub_n] if sub_n else sub
+    args_sub = [x[sub].contiguous() for x in (o, d, t)]
+    got = fn(pack, o, d, t)
+    ref = plain(pack, *args_sub)
+    if kind == "any_hit":
+        check(torch.equal(got[sub], ref), f"{label}: occ differs on "
+              f"{int((got[sub] != ref).sum())} lanes")
+        check(not bool(got[t <= 0].any()), f"{label}: a dead lane occluded")
+        frac = float(got.float().mean())
+    else:
+        check(all(torch.equal(x[sub], y) for x, y in zip(got, ref)),
+              f"{label}: hit / t / tri / b not bit-equal to the plain version")
+        frac = float(got.hit.float().mean())
+    check(frac > 0, f"{label}: nothing hit")
+    return {"rays": label, "kernel": kind, "n_rays": n,
+            "plain_on_rays": int(sub.numel()), "bit_equal": True,
+            "alive_fraction": float((t > 0).float().mean()),
+            ("occluded_fraction" if kind == "any_hit" else "hit_fraction"): frac,
+            "max_abs_err": 0.0,
+            "kernel_ms": device_ms(lambda: fn(pack, o, d, t), 10, flush),
+            "wrapper_ms": time_cuda(lambda: fn(pack, o, d, t), 10, flush),
+            "plain_ms": time_cuda(lambda: plain(pack, *args_sub), 1, flush)}
+
+
+def instance_ray_sets(scene, cam, cfg):
+    """The instanced scene's 1M camera rays, the cosine bounce rays from
+    where they hit and the shadow rays toward the area light from there
+    (path_rays), each in object space (object_space over the instances)."""
+    rays = path_rays(scene.device, scene, cam, cfg, light=0)
+    table = scene.instanced
+    n_inst = table.obj_to_world.shape[0]
+    return {k: (*object_space(table, o, d, n_inst), t)
+            for k, (o, d, t) in rays.items()}
+
+
+def check_boxes_contain_children(bvh, what):
+    """Every inner node's box (depth-first layout: children n + 1 and
+    offset[n]) contains its children's."""
+    lo, hi = bvh.bounds_lo.cpu().numpy(), bvh.bounds_hi.cpu().numpy()
+    off, npr = bvh.offset.cpu().numpy(), bvh.n_prims.cpu().numpy()
+    inner = np.nonzero(npr == 0)[0]
+    bad = 0
+    for child in (inner + 1, off[inner]):
+        bad += int(((lo[child] < lo[inner]) | (hi[child] > hi[inner]))
+                   .any(axis=1).sum())
+    check(bad == 0, f"{what}: {bad} node boxes miss a child's box")
+    return int(len(inner))
+
+
+def phase_scene_features(dev, ch, wb, pk):
+    """Phase 12.  Returns the launches of (closest_hit, brute_any_hit,
+    packet_closest_hit, packet_any_hit) on its instanced paths."""
+    from gnxraytracer_tpu_torch import cli
+    from gnxraytracer_tpu_torch.constants import INFINITY
+    from gnxraytracer_tpu_torch.models import light_dist
+    from gnxraytracer_tpu_torch.models.integrators import path
+    from gnxraytracer_tpu_torch.ops import samplers
+    from gnxraytracer_tpu_torch.scene import presets
+    from gnxraytracer_tpu_torch.scene.camera import make_perspective_camera
+    from gnxraytracer_tpu_torch.scene.loaders import make_blob_mesh, make_test_mesh
+    from gnxraytracer_tpu_torch.scene.scene import SceneBuilder
+
+    t_phase = time.time()
+    check(os.environ.get("GNX_WIDE_BVH") is None,
+          "phase 12 runs with GNX_WIDE_BVH unset")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    chunks = SPP // SPP_CHUNK
+    casts = chunks * (MAX_DEPTH + 1)  # closest and shadow casts, each
+    inst_launches = np.zeros(4, np.int64)
+
+    # (a) three instanced boxes (each its own 12-triangle tree) against the
+    # flattened twin; the walls brute-forced (use_bvh=False, as the JAX
+    # package does below 32,768 triangles)
+    scene, cam = presets.cornell_instanced(WIDTH, HEIGHT, n_inst=3, bvh=True,
+                                           device=dev)
+    cfg = main_cfg(scene, use_bvh=False)
+    check(cfg.n_inst == 3 and cfg.n_inst_tris == 12, f"config {cfg}")
+    img, ms, counts = counted_render(ch, wb, pk, scene, cam, cfg,
+                                     "instanced boxes")
+    want = {"closest_hit": casts, "brute_any_hit": casts,
+            "packet_closest_hit": 3 * casts, "packet_any_hit": 3 * casts}
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"instanced boxes: launches {counts}, expected {want}")
+    inst_launches += [counts[k] for k in ("closest_hit", "brute_any_hit",
+                                          "packet_closest_hit",
+                                          "packet_any_hit")]
+    flat_scene, _ = presets.cornell_instanced(WIDTH, HEIGHT, n_inst=3,
+                                              bvh=True, flatten=True,
+                                              device=dev)
+    flat, flat_ms, flat_counts = counted_render(
+        ch, wb, pk, flat_scene, cam, main_cfg(flat_scene, use_bvh=False),
+        "flattened boxes")
+    agree = twin_agreement("instanced boxes", img, flat)
+    # brute-forced instances: the same scene without the box's tree casts
+    # each instance through kernels 1 and 1b, one chunk
+    b_scene, _ = presets.cornell_instanced(WIDTH, HEIGHT, n_inst=3, device=dev)
+    b_cfg = main_cfg(b_scene, use_bvh=False)._replace(spp=SPP_CHUNK)
+    b_img, b_ms, b_counts = counted_render(ch, wb, pk, b_scene, cam, b_cfg,
+                                           "brute-forced instances")
+    per = MAX_DEPTH + 1
+    check(b_counts["closest_hit"] == 4 * per
+          and b_counts["brute_any_hit"] == 4 * per
+          and b_counts["packet_closest_hit"] == 0,
+          f"brute-forced instances: launches {b_counts}")
+    inst_launches += [b_counts["closest_hit"], b_counts["brute_any_hit"], 0, 0]
+    emit({"phase": "scene_features", "part": "a", "scene":
+          "cornell_instanced(n_inst=3, bvh=True)", "entry": "path.render",
+          "width": WIDTH, "height": HEIGHT, "max_depth": MAX_DEPTH, "spp": SPP,
+          "lanes_per_chunk": WIDTH * HEIGHT * SPP_CHUNK, "chunks": chunks,
+          "ms_per_chunk": ms, "Mpaths_per_s": WIDTH * HEIGHT * SPP_CHUNK / ms / 1e3,
+          "kernel_launches": counts, "plain_calls": dict(PLAIN_CALLS),
+          "flattened_twin": {"ms_per_chunk": flat_ms,
+                             "kernel_launches": flat_counts, **agree},
+          "brute_forced_instances": {"ms_per_chunk": b_ms,
+                                     "kernel_launches": b_counts},
+          "image_mean": float(img.mean()),
+          "cli": "the CLI has no instanced preset (neither has the JAX "
+                 "package's)"})
+
+    # kernels 1 and 1b on instance-space rays of this scene: the box's
+    # triangle table, the camera and shadow rays in each instance's space
+    sets = instance_ray_sets(scene, cam, cfg)
+    soa = ch.tri_soa_from_mesh(scene.instanced.verts, scene.instanced.tris)
+    brute_cases = [
+        instance_cast("boxes camera, object space", "closest_hit",
+                      lambda s, o, d, t: ch.closest_hit(o, d, t, s),
+                      lambda s, o, d, t: ch.closest_hit_reference(o, d, t, s),
+                      soa, *sets["camera"], flush),
+        instance_cast("boxes shadow, object space", "any_hit",
+                      lambda s, o, d, t: ch.any_hit(o, d, t, s),
+                      lambda s, o, d, t: ch.any_hit_reference(o, d, t, s),
+                      soa, *sets["shadow"], flush)]
+    emit({"phase": "scene_features", "part": "a", "what":
+          "kernels 1 and 1b on instance-space rays against their plain "
+          "versions", "cases": brute_cases})
+    del sets, flat, b_img
+
+    # (b) four instances of the 20,480-triangle mesh, each walking its tree
+    # through kernels 4 and 5, against the flattened twin (one SAH tree over
+    # 81,920 + 12 triangles, kernels 2 and 3)
+    scene, cam, inst_build_s = instanced_mesh_scene(dev, flatten=False)
+    cfg = main_cfg(scene)
+    check(cfg.n_inst == 4 and cfg.n_inst_tris == 20_480 and not cfg.use_bvh,
+          f"config {cfg}")
+    img, ms, counts = counted_render(ch, wb, pk, scene, cam, cfg,
+                                     "instanced mesh")
+    want = {"closest_hit": casts, "brute_any_hit": casts,
+            "packet_closest_hit": 4 * casts, "packet_any_hit": 4 * casts}
+    check(all(counts[k] == want.get(k, 0) for k in counts),
+          f"instanced mesh: launches {counts}, expected {want}")
+    inst_launches += [counts[k] for k in ("closest_hit", "brute_any_hit",
+                                          "packet_closest_hit",
+                                          "packet_any_hit")]
+    flat_scene, _, flat_build_s = instanced_mesh_scene(dev, flatten=True)
+    fcfg = main_cfg(flat_scene)
+    check(fcfg.use_bvh and fcfg.bvh_mode == "pallas", f"config {fcfg}")
+    flat, flat_ms, flat_counts = counted_render(ch, wb, pk, flat_scene, cam,
+                                                fcfg, "flattened mesh")
+    check(flat_counts["wide_closest_hit"] == casts
+          and flat_counts["packet_closest_hit"] == 0,
+          f"flattened mesh: launches {flat_counts}")
+    agree = twin_agreement("instanced mesh", img, flat)
+    emit({"phase": "scene_features", "part": "b", "scene":
+          "cornell + 4 instances of make_test_mesh(5) (81,920 triangles)",
+          "entry": "path.render", "spp": SPP, "chunks": chunks,
+          "lanes_per_chunk": WIDTH * HEIGHT * SPP_CHUNK,
+          "instance_bvh_build_s": inst_build_s, "ms_per_chunk": ms,
+          "Mpaths_per_s": WIDTH * HEIGHT * SPP_CHUNK / ms / 1e3,
+          "kernel_launches": counts, "plain_calls": dict(PLAIN_CALLS),
+          "flattened_twin": {"ms_per_chunk": flat_ms, "bvh_build_s":
+                             flat_build_s, "kernel_launches": flat_counts,
+                             **agree},
+          "image_mean": float(img.mean())})
+    del flat, flat_scene
+    # the instance-space rays through kernels 4 and 5 alone
+    sets = instance_ray_sets(scene, cam, cfg)
+    pack = scene.instanced.bvh.packet
+    cases = [instance_cast(f"instanced mesh {k}, object space", kind,
+                           getattr(pk, f"packet_{kind}"),
+                           getattr(pk, f"packet_{kind}_reference"), pack,
+                           *sets[k], flush, sub_n=PLAIN_SUBSAMPLE)
+             for k, kind in (("camera", "closest_hit"),
+                             ("bounce", "closest_hit"),
+                             ("shadow", "any_hit"))]
+    emit({"phase": "scene_features", "part": "b", "what":
+          "kernels 4 and 5 on the instanced mesh's object-space rays against "
+          "the plain walk", "tree_nodes": int(pack.nodes.shape[0]),
+          "cases": cases})
+    del sets, scene
+
+    # (c) the LBVH: built on the card over the blob mesh of envmap_mesh,
+    # against the SAH build of the same mesh
+    v, t, _, _ = make_blob_mesh(229)
+    v = (v + np.float32([0.0, -0.5, 0.0])).astype(np.float32)
+
+    def blob_scene(bvh):
+        b = SceneBuilder()
+        b.add_mesh(v, t, b.add_matte((0.5, 0.5, 0.5)))
+        b.add_skybox_light()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        s = b.build(bvh=bvh, device=dev)
+        torch.cuda.synchronize()
+        return s, time.time() - t0
+
+    blob_scene("lbvh")  # warm-up: the first build pays for the operators
+    lbvh_scene, lbvh_s = blob_scene("lbvh")
+    sah_scene, sah_s = blob_scene(True)
+    inner = check_boxes_contain_children(lbvh_scene.bvh, "LBVH")
+    check(lbvh_scene.big_tri_idx is None, "the LBVH kept triangles out")
+    # 1M camera rays at the blob, the closest hits through kernel 2 on both
+    # trees, then shadow rays from the hits through kernel 3
+    lo, hi = v.min(0), v.max(0)
+    c = (lo + hi) / 2
+    bcam = make_perspective_camera(1000, 1000, eye=tuple(c + [0, 0.4, 2.6]),
+                                   look=tuple(c), fov=60.0, device=dev)
+    ij = torch.arange(1000 * 1000, device=dev)
+    p_film = torch.stack([(ij % 1000).float() + 0.5,
+                          (ij // 1000).float() + 0.5], -1)
+    from gnxraytracer_tpu_torch.scene import camera as camera_mod
+    z = torch.zeros((ij.shape[0],), device=dev)
+    o, d, _ = camera_mod.generate_rays(bcam, p_film, z,
+                                       torch.zeros_like(p_film))
+    o, d = o.contiguous(), d.contiguous()
+    t_inf = torch.full_like(z, INFINITY)
+    hl = wb.wide_closest_hit(lbvh_scene.bvh.wide, o, d, t_inf)
+    hs = wb.wide_closest_hit(sah_scene.bvh.wide, o, d, t_inf)
+    same_tri = hl.hit & hs.hit & (hl.tri == hs.tri)
+    check(torch.equal(hl.hit, hs.hit), "LBVH and SAH trees: the hit sets "
+          f"differ on {int((hl.hit != hs.hit).sum())} lanes")
+    check(torch.equal(hl.t[same_tri], hs.t[same_tri]),
+          "LBVH and SAH trees: t differs where the triangle is the same")
+    sub = torch.arange(0, o.shape[0], o.shape[0] // PLAIN_SUBSAMPLE,
+                       device=dev)[:PLAIN_SUBSAMPLE]
+    ref = wb.wide_closest_hit_reference(lbvh_scene.bvh.wide, o[sub], d[sub],
+                                        t_inf[sub])
+    lbvh_err = compare_wide_hits("LBVH camera rays", type(hl)(
+        *(x[sub] for x in hl)), ref, t_inf[sub])
+    p = o + hl.t[:, None].clamp(max=1e3) * d
+    light = torch.tensor([0.0, 5.0, 0.0], device=dev)
+    so = (p + 1e-3 * (light - p)).contiguous()
+    to_l = light - so
+    st = torch.where(hl.hit, torch.linalg.norm(to_l, dim=1), 0.0).contiguous()
+    sd = (to_l / torch.linalg.norm(to_l, dim=1, keepdim=True)).contiguous()
+    occ_l = wb.wide_any_hit(lbvh_scene.bvh.wide, so, sd, st)
+    occ_s = wb.wide_any_hit(sah_scene.bvh.wide, so, sd, st)
+    check(torch.equal(occ_l, occ_s), "LBVH and SAH trees: occlusion differs "
+          f"on {int((occ_l != occ_s).sum())} lanes")
+    occ_ref = wb.wide_any_hit_reference(lbvh_scene.bvh.wide, so[sub], sd[sub],
+                                        st[sub])
+    check(torch.equal(occ_l[sub], occ_ref), "LBVH shadow rays: the any-hit "
+          "kernel differs from its plain version")
+    times = {label: {
+        "closest_kernel_ms": device_ms(
+            lambda: wb.wide_closest_hit(s.bvh.wide, o, d, t_inf), 10, flush),
+        "any_kernel_ms": device_ms(
+            lambda: wb.wide_any_hit(s.bvh.wide, so, sd, st), 10, flush),
+        "wide_nodes": int(s.bvh.wide.rec.shape[0]),
+        "binary_nodes": int(s.bvh.packet.nodes.shape[0])}
+        for label, s in (("lbvh", lbvh_scene), ("sah", sah_scene))}
+    del lbvh_scene, sah_scene, hl, hs, o, d, so, sd
+    # one chunk of the mirror-free mesh Cornell box on an LBVH: every
+    # triangle in the tree, every cast through kernels 2 and 3
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, mesh=make_test_mesh(5),
+                                     bvh="lbvh", device=dev)
+    cfg = main_cfg(scene)._replace(spp=SPP_CHUNK)
+    check(cfg.use_bvh and cfg.n_big == 0, f"config {cfg}")
+    img, l_ms, l_counts = counted_render(ch, wb, pk, scene, cam, cfg,
+                                         "cornell-mesh LBVH")
+    check(l_counts["wide_closest_hit"] == MAX_DEPTH + 1
+          and l_counts["wide_any_hit"] == MAX_DEPTH + 1
+          and l_counts["closest_hit"] == 0,
+          f"cornell-mesh LBVH: launches {l_counts}")
+    emit({"phase": "scene_features", "part": "c", "mesh": "make_blob_mesh(229)",
+          "triangles": int(len(t)), "lbvh_build_s": lbvh_s,
+          "sah_build_s": sah_s, "lbvh_inner_nodes": inner,
+          "boxes_contain_children": True, "camera_rays": int(ij.shape[0]),
+          "hit_fraction": float(same_tri.float().mean()),
+          "hit_sets_equal": True, "t_equal_where_same_triangle": True,
+          "occlusion_equal": True, "lbvh_kernel_max_abs_err_vs_plain":
+          lbvh_err, "times": times,
+          "cornell_mesh_lbvh_chunk": {"ms": l_ms, "kernel_launches": l_counts,
+                                      "image_mean": float(img.mean())}})
+    del scene
+
+    # (d) the new presets through the CLI, the reference renderer's metal
+    # and gmd goldens, and the plastic-roughness / glass-eta gradients
+    cli_out = {}
+    for preset, extra in (("metal", []), ("cornell-glass", []),
+                          ("volume", ["--integrator", "volpath"])):
+        reset_counts(ch, wb, pk)
+        with tempfile.TemporaryDirectory() as out_dir:
+            out = os.path.join(out_dir, "cli.npy")
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                cli.main(["render", "--preset", preset, "--spp", "4",
+                          "--out-npy", out] + extra)
+            cimg = np.load(out)
+        check_no_plain_brute(f"cli render --preset {preset}", walks=True)
+        c_counts = all_counts(ch, wb, pk)
+        check(c_counts["closest_hit"] > 0, f"cli {preset}: no kernel launch")
+        check(cimg.shape == (HEIGHT, WIDTH, 3) and np.isfinite(cimg).all()
+              and cimg.mean() > 0.02, f"cli {preset}: bad image")
+        frames = [json.loads(l) for l in log.getvalue().splitlines()
+                  if l.startswith("{") and "frame_time_s" in l]
+        cli_out[preset] = {"kernel_launches": c_counts,
+                           "frame_time_s": [f["frame_time_s"] for f in frames],
+                           "image_mean": float(cimg.mean())}
+    goldens = {}
+    for name, make in (("ref_metal_cornell", lambda w, h, m: presets
+                        .cornell_metal(w, h, device=dev)),
+                       ("ref_gmd_cornell", lambda w, h, m: presets
+                        .cornell_gmd(w, h, sigma=m["sigma"], device=dev))):
+        z = np.load(os.path.join(HERE, "tests", "golden", f"{name}.npz"))
+        ref, meta = z["image"], json.loads(str(z["meta"]))
+        w, h, spp = meta["w"], meta["h"], 64
+        gs, gc = make(w, h, meta)
+        gcfg = path.make_config(gs, w, h, spp=spp, max_depth=meta["max_depth"],
+                                spp_chunk=32, use_pallas=True)
+        reset_counts(ch, wb, pk)
+        ours = path.render(gs, gc, samplers.make_halton_sampler(
+            spp, w, h, device=dev), gcfg).cpu().numpy()
+        check_no_plain_brute(name, walks=True)
+        check(np.isfinite(ours).all(), f"{name}: the image is not finite")
+        berr = float(np.abs(block_mean8(ours) - block_mean8(ref)).mean()
+                     / ref.mean())
+        merr = float((np.abs(ours.mean((0, 1)) - ref.mean((0, 1)))
+                      / ref.mean()).max())
+        goldens[name] = {"integrator": meta["integrator"], "spp": spp,
+                         "width": w, "height": h,
+                         "max_depth": meta["max_depth"], "sampler": "halton",
+                         "block8_rel_err": berr, "limit": 0.032,
+                         "channel_mean_rel_err": merr, "mean_limit": 0.03,
+                         "kernel_launches": all_counts(ch, wb, pk)}
+        check(berr < 0.032, f"{name}: block8 error {berr}")
+        check(merr < 0.03, f"{name}: channel mean error {merr}")
+    grads = {}
+    gw = 128
+
+    def plastic_plane():
+        """The plastic plane of TestGradientSurface.test_grad_wrt_roughness."""
+        b = SceneBuilder()
+        m = b.add_plastic((0.4, 0.4, 0.4), roughness=0.3)
+        fv = np.array([[-2, -1, 2], [2, -1, 2], [2, -1, -2], [-2, -1, -2]],
+                      np.float32)
+        b.add_mesh(fv, np.array([[0, 1, 2], [0, 2, 3]]), m)
+        b.add_point_light((1.5, 2.0, 1.5), (30, 30, 30))
+        return b.build(device=dev), make_perspective_camera(
+            gw, gw, eye=(0, 0.5, 3), look=(0, -0.5, 0), device=dev)
+
+    for label, make, col, depth in (
+            ("plastic roughness", plastic_plane, ("rough_u", "rough_v"), 2),
+            ("glass eta", lambda: presets.cornell_glass(gw, gw, device=dev),
+             ("eta",), 4)):
+        gs, gc = make()
+        gcfg = path.make_config(gs, gw, gw, spp=16, max_depth=depth,
+                                spp_chunk=16, use_pallas=True)
+        x = getattr(gs.materials, col[0]).clone().requires_grad_(True)
+        sc = gs._replace(materials=gs.materials._replace(
+            **{c_: x for c_ in col}))
+        reset_counts(ch, wb, pk)
+        img = path.render_chunk(sc, gc, samplers.make_halton_sampler(
+            16, gw, gw, device=dev), gcfg, 0, 16)
+        (g,) = torch.autograd.grad(torch.mean(img / 16), x)
+        check_no_plain_brute(f"{label} gradient", walks=True)
+        g_counts = all_counts(ch, wb, pk)
+        check(g_counts["closest_hit"] > 0, f"{label}: no kernel launch")
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"{label}: gradient {g.tolist()} not finite and non-zero")
+        grads[label] = {"grad": g.tolist(), "width": gw, "spp": 16,
+                        "max_depth": depth, "kernel_launches": g_counts}
+    emit({"phase": "scene_features", "part": "d", "cli": cli_out,
+          "goldens": goldens, "gradients": grads})
+
+    # (e) the spatial light distribution against the uniform strategy, and a
+    # bump-mapped quad against the flat one
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, skybox=False, device=dev)
+    cfg = main_cfg(scene, light_strategy="spatial")
+    t0 = time.time()
+    dist = light_dist.build_spatial_distribution(scene, cfg)
+    torch.cuda.synchronize()
+    grid_s = time.time() - t0
+    sp_img, sp_ms, sp_counts = counted_render(
+        ch, wb, pk, scene._replace(light_dist=dist), cam, cfg, "spatial")
+    un_img, un_ms, _ = counted_render(
+        ch, wb, pk, scene, cam, cfg._replace(light_strategy="uniform"),
+        "uniform")
+    rel = abs(float(sp_img.mean()) - float(un_img.mean())) / float(
+        un_img.mean())
+    check(rel < 0.1, f"spatial strategy: mean {rel} off the uniform one's")
+    b = SceneBuilder()
+    yy, xx = np.mgrid[0:64, 0:64] / 64.0
+    hgt = (0.5 + 0.5 * np.sin(xx * 20) * np.sin(yy * 20)).astype(np.float32)
+    tex = b.add_texture(np.stack([hgt] * 3, -1))
+    qm = b.add_material(0, kd=(0.8, 0.8, 0.8), bump_tex=tex, bump_scale=1.0)
+    qv = np.array([[-2, -2, 0], [2, -2, 0], [2, 2, 0], [-2, 2, 0]], np.float32)
+    quv = np.array([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32)
+    b.add_mesh(qv, np.array([[0, 1, 2], [0, 2, 3]], np.int32), qm, uvs=quv)
+    b.add_point_light((3, 3, 4), (60, 60, 60))
+    qs = b.build(device=dev)
+    qc = make_perspective_camera(WIDTH, HEIGHT, eye=(0, 0, 4.0),
+                                 look=(0, 0, 0), fov=50.0, device=dev)
+    qcfg = path.make_config(qs, WIDTH, HEIGHT, spp=SPP, max_depth=1,
+                            spp_chunk=SPP_CHUNK, fast_mis=True,
+                            count_rays=True, use_pallas=True)
+    check(qcfg.has_bump, "the bump quad's configuration has no bump map")
+    bumped, bump_ms, bump_counts = counted_render(ch, wb, pk, qs, qc, qcfg,
+                                                  "bump quad")
+    flat, _, _ = counted_render(ch, wb, pk, qs, qc,
+                                qcfg._replace(has_bump=False), "flat quad")
+    bump_diff = float((bumped - flat).abs().max())
+    check(bump_diff > 0.1, f"bump map: the shading moved by {bump_diff} only")
+    emit({"phase": "scene_features", "part": "e",
+          "spatial": {"grid_res": dist.res, "grid_build_s": grid_s,
+                      "ms_per_chunk": sp_ms, "uniform_ms_per_chunk": un_ms,
+                      "mean": float(sp_img.mean()),
+                      "uniform_mean": float(un_img.mean()),
+                      "mean_rel_diff": rel, "limit": 0.1,
+                      "kernel_launches": sp_counts},
+          "bump": {"ms_per_chunk": bump_ms, "max_abs_diff_vs_flat": bump_diff,
+                   "limit": 0.1, "kernel_launches": bump_counts}})
+    emit({"phase": "scene_features", "seconds": time.time() - t_phase})
+    return tuple(int(x) for x in inst_launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2590,6 +3169,14 @@ def main():
         phase_goldens_halton(dev)
         phase_gradients(dev, ch, wb, pk, mesh)
         phase_volpath(dev, ch, wb, pk)
+        # the launches of phase 12's instanced paths join those of the main
+        # paths that launched each kernel before (phases 4 and 7)
+        for r, n in zip((record, rec_brute_any, rec_pclosest, rec_pany),
+                        phase_scene_features(dev, ch, wb, pk)):
+            check(n > 0, f"phase 12 never launched the kernel {r['name']}")
+            r["launches_by_path"] = {"main path": r["launches"],
+                                     "phase 12 instanced paths": n}
+            r["launches"] += n
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -4,11 +4,15 @@ reference tonemap, and checkpoint/resume of the linear accumulation state.
 
 Runs on the CUDA device unless ``--cpu`` is given; without a CUDA device
 and without ``--cpu`` it stops with an error.  On a CUDA device the casts
-go through the hand-written kernels: the brute-force closest hit
-(use_pallas=True) and, for the presets with a BVH, the wide-BVH closest-hit
-and any-hit kernels (bvh_mode="pallas"), or with GNX_WIDE_BVH=0 in the
-environment the binary threaded-BVH ones.  The defaults are the JAX CLI's:
-the faithful path estimator with the Halton sampler at depth 5.
+go through the hand-written kernels (path.make_config's default there):
+the brute-force closest hit and any hit (use_pallas=True) and, for the
+presets with a BVH, the wide-BVH closest-hit and any-hit kernels
+(bvh_mode="pallas"), or with GNX_WIDE_BVH=0 in the environment the binary
+threaded-BVH ones.  The defaults are the JAX
+CLI's: the faithful path estimator with the Halton sampler at depth 5.
+``gridvol`` needs density_render.70.volume under $GNX_RESOURCES and stops
+with a message naming it when the file is not there; ``volume`` takes a
+procedural density then.
 
 Usage:
   python -m gnxraytracer_tpu_torch.cli render --preset cornell --spp 64 \\
@@ -39,7 +43,6 @@ PRESETS = {
     "metal": "Cornell + the reference app's Metal/Plastic presets (parity twin)",
     "gridvol": "Cornell + GridDensityMedium from density_render.70.volume",
 }
-PORTED_PRESETS = ("cornell", "cornell-mesh", "sphere", "envmap", "gmd")
 
 
 def build_preset(name, width, height, device):
@@ -52,16 +55,23 @@ def build_preset(name, width, height, device):
 
         return presets.cornell_box(width, height, mesh=make_test_mesh(5),
                                    bvh=True, device=device)
+    if name == "cornell-glass":
+        return presets.cornell_glass(width, height, device=device)
     if name == "sphere":
         return presets.sphere_point_light(width, height, device=device)
+    if name == "volume":
+        return presets.volumetric_cornell(width, height, device=device)
     if name == "envmap":
         return presets.envmap_mesh(width, height, device=device)
     if name == "gmd":
         return presets.cornell_gmd(width, height, device=device)
-    if name in PRESETS:
-        raise SystemExit(
-            f"preset {name!r} is not ported to PyTorch yet; ported presets: "
-            f"{', '.join(PORTED_PRESETS)}")
+    if name == "metal":
+        return presets.cornell_metal(width, height, device=device)
+    if name == "gridvol":
+        try:
+            return presets.cornell_gridvol(width, height, device=device)
+        except FileNotFoundError as e:
+            raise SystemExit(f"preset gridvol: {e}")
     raise SystemExit(f"unknown preset {name}; try: {', '.join(PRESETS)}")
 
 
@@ -93,8 +103,7 @@ def cmd_render(args):
     cfg = path_mod.make_config(
         scene, args.width, args.height, spp=args.spp, max_depth=args.max_depth,
         spp_chunk=args.spp_chunk, rr_threshold=args.rr_threshold,
-        fast_mis=args.fast_mis, use_pallas=device.type == "cuda",
-    )
+        fast_mis=args.fast_mis)
     if args.sampler == "halton":
         sampler = samplers.make_halton_sampler(args.spp, args.width,
                                                args.height, device=device)
@@ -149,8 +158,7 @@ def cmd_render(args):
 
 def cmd_presets(_args):
     for k, v in PRESETS.items():
-        ported = "" if k in PORTED_PRESETS else "  [not ported yet]"
-        print(f"{k:15s} {v}{ported}")
+        print(f"{k:15s} {v}")
 
 
 def main(argv=None):

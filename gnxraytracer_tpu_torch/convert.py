@@ -14,8 +14,9 @@ from .models.integrators.path import RenderCfg
 from .ops.samplers import Sampler, halton_sampler_from_tables
 from .scene.camera import Camera
 from .ops.bvh import bvh_from_numpy
-from .scene.scene import (EnvMap, Geometry, LightTable, MaterialTable,
-                          MediumTable, Scene)
+from .models.light_dist import SpatialLightDist
+from .scene.scene import (EnvMap, Geometry, InstancedGeom, LightTable,
+                          MaterialTable, MediumTable, Scene)
 from .utils.device import resolve_device
 
 
@@ -35,10 +36,6 @@ def _table(cls, src, dev):
 def scene_from_numpy(tree, device="cuda"):
     """JAX-package Scene (numpy leaves) -> the port's Scene."""
     dev = resolve_device(device)
-    for field in ("light_dist", "instanced"):
-        if getattr(tree, field, None) is not None:
-            raise NotImplementedError(
-                f"scene.{field} is not ported yet and cannot be carried across")
     env = None
     if tree.env is not None:
         # the inverse-CDF jump table is a TPU device and is not carried
@@ -48,6 +45,20 @@ def scene_from_numpy(tree, device="cuda"):
     textures = None
     if tree.textures is not None:
         textures = tuple(_tensor(a, dev) for a in tree.textures)
+    instanced = None
+    if tree.instanced is not None:
+        ig = tree.instanced
+        instanced = InstancedGeom(**{
+            f: (None if ig.bvh is None else bvh_from_numpy_tree(ig.bvh, dev))
+            if f == "bvh" else _tensor(getattr(ig, f), dev)
+            for f in InstancedGeom._fields})
+    light_dist = None
+    if tree.light_dist is not None:
+        ld = tree.light_dist
+        light_dist = SpatialLightDist(
+            cdf=_tensor(ld.cdf, dev), pmf=_tensor(ld.pmf, dev),
+            res=tuple(int(r) for r in ld.res), lo=_tensor(ld.lo, dev),
+            inv_extent=_tensor(ld.inv_extent, dev))
     return Scene(
         geom=_table(Geometry, tree.geom, dev),
         materials=_table(MaterialTable, tree.materials, dev),
@@ -59,21 +70,19 @@ def scene_from_numpy(tree, device="cuda"):
         world_center=_tensor(tree.world_center, dev),
         world_radius=_tensor(tree.world_radius, dev),
         bvh=None if tree.bvh is None else bvh_from_numpy_tree(tree.bvh, dev),
+        light_dist=light_dist, instanced=instanced,
         light_pmf=_tensor(tree.light_pmf, dev),
         big_tri_idx=_tensor(tree.big_tri_idx, dev),
     )
 
 
 def bvh_from_numpy_tree(bvh, device="cuda"):
-    """JAX-package BVH (numpy leaves) -> the port's BVH.  The binary tables
-    carry across as they are; the width-8 table the port walks is made from
-    them (ops/wbvh.build_wide_pack), and so is the binary threaded table
-    (ops/bvh.build_packet_pack), so both packages walk the same tree.
-    The JAX package's treelet tables exist to fit the TPU's fast memory and
-    are not carried."""
-    if bvh.first8 is None:
-        raise NotImplementedError(
-            "a BVH without octant links (the LBVH build) is not ported yet")
+    """JAX-package BVH (numpy leaves; an SAH or an LBVH tree) -> the port's
+    BVH.  The binary tables carry across as they are; the width-8 table the
+    port walks is made from them (ops/wbvh.build_wide_pack), and so is the
+    binary threaded table (ops/bvh.build_packet_pack), so both packages walk
+    the same tree.  The JAX package's treelet tables exist to fit the TPU's
+    fast memory and are not carried."""
     return bvh_from_numpy(
         *(np.asarray(getattr(bvh, f)) for f in (
             "bounds_lo", "bounds_hi", "offset", "n_prims", "axis", "prim_idx",

@@ -70,7 +70,7 @@ class RenderCfg(NamedTuple):
     sort_key: str = "oct_morton"
     reference_area_bug: bool = True
     spp_chunk: int = 4
-    light_strategy: str = "uniform"  # uniform | power
+    light_strategy: str = "uniform"  # uniform | power | spatial
     has_media: bool = False
     has_textures: bool = False
     # the brute-force cast goes through the hand-written kernel
@@ -134,8 +134,10 @@ def make_config(scene, width, height, spp, **kw):
     # mat_kinds from materials actually REFERENCED by geometry, not every
     # table row: the reference scene registers a mirror it never assigns
     kinds_tab = scene.materials.kind.cpu().numpy()
-    used = np.concatenate([scene.geom.tri_mat.cpu().numpy(),
-                           scene.geom.sph_mat.cpu().numpy()])
+    used = [scene.geom.tri_mat.cpu().numpy(), scene.geom.sph_mat.cpu().numpy()]
+    if scene.instanced is not None:
+        used.append(scene.instanced.tri_mat.cpu().numpy())
+    used = np.concatenate(used)
     used = used[used >= 0]
     if used.size:
         mat_kinds = tuple(sorted(set(kinds_tab[used].tolist())))
@@ -151,15 +153,14 @@ def make_config(scene, width, height, spp, **kw):
         # shadow rays walk the null-material medium shells (medium Tr through
         # each); without the walk they take the shells for opaque occluders
         kw.setdefault("tr_walk_segments", 4)
-    if kw.get("use_bvh") and "bvh_mode" not in kw:
-        # the hand-written kernels where the scene lies on a CUDA device, the
-        # plain walk elsewhere
-        if scene.geom.vertices.device.type == "cuda":
-            kw["bvh_mode"] = "pallas"
-    has_bump = bool(scene.textures is not None
-                    and (scene.materials.bump_tex >= 0).any())
-    if has_bump:
-        raise NotImplementedError("bump maps are not ported yet")
+    if scene.geom.vertices.device.type == "cuda":
+        # the hand-written kernels where the scene lies on a CUDA device (the
+        # brute-force casts, the instances' casts and the BVH walks), the
+        # plain versions elsewhere
+        kw.setdefault("use_pallas", True)
+        if kw.get("use_bvh"):
+            kw.setdefault("bvh_mode", "pallas")
+    inst = scene.instanced
     return RenderCfg(
         width=width, height=height, spp=spp,
         mat_kinds=mat_kinds, light_kinds=tuple(sorted(set(light_seq))),
@@ -171,8 +172,10 @@ def make_config(scene, width, height, spp, **kw):
         n_lights=int(scene.lights.kind.shape[0]),
         has_media=scene.media is not None,
         has_textures=scene.textures is not None,
-        has_bump=False,
-        n_inst=0, n_inst_tris=0,
+        has_bump=bool(scene.textures is not None
+                      and (scene.materials.bump_tex >= 0).any()),
+        n_inst=0 if inst is None else int(inst.obj_to_world.shape[0]),
+        n_inst_tris=0 if inst is None else int(inst.tris.shape[0]),
         **kw,
     )
 
@@ -185,12 +188,17 @@ def _choose_light(scene, cfg, u, p=None):
     """Light selection by the configured strategy:
       uniform — 1/nLights
       power   — proportional to each light's power
+      spatial — the CDF of the voxel that holds p (scene.light_dist,
+                models/light_dist.py); power where the scene has no such
+                grid or p is not given
     Returns (index (N,) int32, selection pdf (N,))."""
     nl = cfg.n_lights
-    if cfg.light_strategy == "spatial":
-        raise NotImplementedError("the spatial light distribution is not "
-                                  "ported yet")
-    if cfg.light_strategy == "power":
+    if (cfg.light_strategy == "spatial" and scene.light_dist is not None
+            and p is not None):
+        from ..light_dist import spatial_choose_light
+
+        return spatial_choose_light(scene.light_dist, p, u)
+    if cfg.light_strategy in ("power", "spatial"):
         pmf = _power_pmf(scene, nl)
         cdf = torch.cat([torch.zeros((1,), device=pmf.device),
                          torch.cumsum(pmf, dim=0)])

@@ -1,9 +1,14 @@
-"""Light-selection distributions.  Ported: "uniform" (1/nLights, handled in
-the integrator) and "power" (proportional to each light's power; the skybox
-reports zero power and is excluded).  The spatial voxel-grid distribution
-is not ported yet.
+"""Light-selection distributions: "uniform" (1/nLights, handled in the
+integrator), "power" (proportional to each light's power; the skybox reports
+zero power and is excluded) and "spatial": a voxel grid over the scene's
+bounding cube, each voxel with its own light CDF, estimated for every voxel
+at once by Monte Carlo at scene set-up (``build_spatial_distribution``) and
+looked up per lane by the position being shaded (``spatial_choose_light``).
 """
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ..constants import PI
@@ -48,3 +53,72 @@ def light_powers(scene):
     # skybox: power 0 (excluded from power heuristics)
     power = torch.where(kind == LIGHT_SKYBOX, 0.0, power)
     return power
+
+
+class SpatialLightDist(NamedTuple):
+    """Dense voxel grid of per-voxel light CDFs."""
+    cdf: torch.Tensor         # (V, L+1) per-voxel CDF
+    pmf: torch.Tensor         # (V, L)
+    res: tuple                # (nx, ny, nz)
+    lo: torch.Tensor          # (3,) low corner of the grid in world space
+    inv_extent: torch.Tensor  # (3,)
+
+
+def build_spatial_distribution(scene, cfg, res=16, n_samples=64, seed=7):
+    """Every voxel's light distribution: each light's unoccluded
+    contribution (luminance of Li / pdf) averaged over n_samples jittered
+    points of the voxel, each weight raised to at least 1% of the voxel's
+    largest so that every light stays selectable (the estimator stays
+    unbiased), normalized into a CDF.  Voxels where no light contributes
+    take the uniform distribution."""
+    from ..ops import rng
+    from . import lights as lights_mod
+
+    dev = scene.device
+    nl = cfg.n_lights
+    lo = scene.world_center - scene.world_radius
+    extent = (scene.world_center + scene.world_radius) - lo
+    nv = res ** 3
+    ii = torch.arange(nv, dtype=torch.int32, device=dev)
+    cell = torch.stack([ii % res, (ii // res) % res, ii // (res * res)],
+                       -1).to(torch.float32)
+    key = torch.arange(nv * n_samples, dtype=torch.int32, device=dev)
+    u3 = torch.stack([rng.uniform_float(key, 0, 11 + k, seed)
+                      for k in range(3)], -1).reshape(nv, n_samples, 3)
+    pts = ((cell[:, None] + u3) / res * extent + lo).reshape(-1, 3)
+    u2 = torch.stack([rng.uniform_float(key, 1, 21, seed),
+                      rng.uniform_float(key, 1, 22, seed)], -1)
+    lum_w = torch.tensor(_LUMINANCE, dtype=torch.float32, device=dev)
+
+    contrib = np.zeros((nv, nl), np.float32)
+    for li in range(nl):
+        lidx = torch.full((pts.shape[0],), li, dtype=torch.int32, device=dev)
+        ls = lights_mod.sample_li(scene, cfg, lidx, pts, u2)
+        lum = ls.li @ lum_w
+        est = torch.where(ls.pdf > 0, lum / torch.clamp(ls.pdf, min=1e-12), 0.0)
+        contrib[:, li] = est.reshape(nv, n_samples).mean(dim=1).cpu().numpy()
+
+    sums = contrib.sum(axis=1, keepdims=True)
+    w = np.where(sums > 0, contrib, np.full_like(contrib, 1.0 / nl))
+    w = np.maximum(w, 0.01 * w.max(axis=1, keepdims=True))
+    pmf = w / w.sum(axis=1, keepdims=True)
+    cdf = np.concatenate([np.zeros((nv, 1), np.float32),
+                          np.cumsum(pmf, axis=1)], axis=1).astype(np.float32)
+    return SpatialLightDist(
+        cdf=torch.from_numpy(cdf).to(dev),
+        pmf=torch.from_numpy(pmf.astype(np.float32)).to(dev),
+        res=(res, res, res), lo=lo, inv_extent=1.0 / extent)
+
+
+def spatial_choose_light(dist: SpatialLightDist, p, u):
+    """A light index (N,) int32 from the CDF of the voxel holding each p,
+    and its selection pdf (N,)."""
+    res = dist.res[0]
+    q = torch.clamp((p - dist.lo) * dist.inv_extent * res, 0, res - 1e-3)
+    qi = q.to(torch.int64)
+    vox = (qi[:, 2] * res + qi[:, 1]) * res + qi[:, 0]
+    cdf = dist.cdf[vox]  # (N, L+1)
+    idx = torch.clamp(
+        torch.sum((cdf <= u[:, None]).to(torch.int64), dim=1) - 1,
+        0, dist.pmf.shape[1] - 1)
+    return idx.to(torch.int32), dist.pmf[vox, idx]

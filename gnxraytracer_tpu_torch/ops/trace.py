@@ -2,14 +2,17 @@
 types, plus surface-interaction construction.
 
 A hit record is SoA tensors carrying prim ids; the surface interaction
-gathers positions/normals/uv and builds the shading frame.  With
-cfg.use_bvh the triangle casts walk the scene's width-8 BVH table
-(kernels/wide_bvh.py) or its binary threaded one (kernels/packet_bvh.py);
-the per-lane stack walks and instancing of the JAX package are not ported
-yet and raise.  The brute-force casts (every triangle of a scene without a
-BVH, the big triangles kept out of one) go through the two kernels of
-kernels/closest_hit.py, closest and any hit, where the configuration asks
-for kernels.
+gathers positions/normals/uv, applies the bump map and builds the shading
+frame.  With cfg.use_bvh the triangle casts walk the scene's width-8 BVH
+table (kernels/wide_bvh.py) or its binary threaded one
+(kernels/packet_bvh.py); the per-lane stack walks of the JAX package are not
+ported yet and raise.  The brute-force casts (every triangle of a scene
+without a BVH, the big triangles kept out of one) go through the two kernels
+of kernels/closest_hit.py, closest and any hit, where the configuration asks
+for kernels.  Instanced copies of a base mesh (cfg.n_inst > 0) are cast in
+each instance's object space (ops/instancing.py): through the binary
+threaded-BVH kernels when the base mesh has a tree, else through the
+brute-force ones, where the configuration asks for kernels.
 The JAX package fetches per-triangle attributes with a one-hot matmul (a
 TPU device); plain index gathers give the same values here.
 """
@@ -20,19 +23,20 @@ import torch
 
 from ..constants import INFINITY, PI, gamma
 from ..utils.math import coordinate_system, cross, dot, face_forward, normalize
+from ..utils.transform import mat_vec
 from . import intersect
 
 PRIM_NONE = -1
 PRIM_TRI = 0
 PRIM_SPH = 1
-PRIM_INST = 2  # instanced base-mesh triangle (not ported)
+PRIM_INST = 2  # instanced base-mesh triangle; prim = inst * n_inst_tris + tri
 
 
 class Hit(NamedTuple):
     hit: torch.Tensor       # (N,) bool
     t: torch.Tensor         # (N,)
-    kind: torch.Tensor      # (N,) int32: PRIM_TRI / PRIM_SPH (valid where hit)
-    prim: torch.Tensor      # (N,) int32 triangle or sphere index
+    kind: torch.Tensor      # (N,) int32: PRIM_TRI / PRIM_SPH / PRIM_INST
+    prim: torch.Tensor      # (N,) int32 triangle, sphere or instance code
     b: torch.Tensor         # (N,3) triangle barycentrics
 
 
@@ -47,11 +51,6 @@ class Interaction(NamedTuple):
     wo: torch.Tensor        # (N,3) world, toward viewer
     mat: torch.Tensor       # (N,) int32 material id
     light: torch.Tensor     # (N,) int32 area light id or -1
-
-
-def _unported(cfg):
-    if getattr(cfg, "n_inst", 0) > 0:
-        raise NotImplementedError("instancing is not ported yet (n_inst > 0)")
 
 
 def _bvh_mode(cfg):
@@ -80,6 +79,21 @@ def _brute_force(scene, cfg, o, d, t_max, any_hit=False, tri_idx=None):
     t_max = intersect._lane_t_max(t_max, o.shape[0], o.device)
     return cast(o.contiguous(), d.contiguous(), t_max.contiguous(),
                 ch.tri_soa_from_mesh(g.vertices, tris))
+
+
+def _instances(scene, cfg):
+    """The scene's instanced geometry, its transform table, and whether its
+    casts go through the kernels' wrappers: where the configuration asks for
+    kernels (cfg.use_pallas, or bvh_mode "pallas")."""
+    from . import instancing
+
+    ig = scene.instanced
+    if ig is None:
+        raise ValueError("cfg.n_inst > 0 needs a scene with instances "
+                         "(SceneBuilder.add_instances)")
+    kernels = getattr(cfg, "use_pallas", False) or cfg.bvh_mode == "pallas"
+    return ig, instancing.InstanceTable(ig.obj_to_world, ig.world_to_obj), \
+        kernels
 
 
 def _bvh_casts(scene, cfg):
@@ -129,11 +143,11 @@ def _merge_tri_hit(th, prim_of, t_best, hit, kind, prim, bary):
 
 
 def scene_intersect(scene, cfg, o, d, t_max):
-    """Closest hit across triangles and spheres.  With cfg.use_bvh the
-    triangle cast walks the BVH (a few huge triangles kept out of the tree
-    are brute-forced first, and their hit t caps the walk); else the
-    triangles are brute-forced (_brute_force says through what)."""
-    _unported(cfg)
+    """Closest hit across triangles, spheres and instances.  With
+    cfg.use_bvh the triangle cast walks the BVH (a few huge triangles kept
+    out of the tree are brute-forced first, and their hit t caps the walk);
+    else the triangles are brute-forced (_brute_force says through what).
+    Each cast starts from the best t found before it."""
     n = o.shape[0]
     dev = o.device
     t_best = intersect._lane_t_max(t_max, n, dev)
@@ -166,14 +180,27 @@ def scene_intersect(scene, cfg, o, d, t_max):
         kind = torch.where(better, PRIM_SPH, kind)
         prim = torch.where(better, sh.sph, prim)
 
+    if getattr(cfg, "n_inst", 0) > 0:
+        from .instancing import instanced_closest_hit
+
+        ig, table, kernels = _instances(scene, cfg)
+        ih = instanced_closest_hit(ig.verts, ig.tris, table, o, d, t_best,
+                                   bvh=ig.bvh, kernels=kernels)
+        better = ih.hit & (ih.t < t_best)
+        t_best = torch.where(better, ih.t, t_best)
+        hit = hit | better
+        kind = torch.where(better, PRIM_INST, kind)
+        prim = torch.where(better, ih.inst * cfg.n_inst_tris + ih.tri, prim)
+        bary = torch.where(better[..., None], ih.b, bary)
+
     return Hit(hit, torch.where(hit, t_best, INFINITY), kind, prim, bary)
 
 
 def scene_occluded(scene, cfg, o, d, t_max):
     """Any-hit (shadow ray).  With cfg.use_bvh the triangle cast walks the
     BVH; lanes that a big triangle already occludes skip the walk
-    (t_max = 0).  The brute-force casts go as in scene_intersect."""
-    _unported(cfg)
+    (t_max = 0).  The brute-force and instance casts go as in
+    scene_intersect."""
     n = o.shape[0]
     occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
     if cfg.n_tris > 0:
@@ -192,6 +219,12 @@ def scene_occluded(scene, cfg, o, d, t_max):
         ok, _ = intersect.ray_spheres(o, d, t_max, scene.geom.sph_center,
                                       scene.geom.sph_radius)
         occ = occ | torch.any(ok, dim=-1)
+    if getattr(cfg, "n_inst", 0) > 0:
+        from .instancing import instanced_any_hit
+
+        ig, table, kernels = _instances(scene, cfg)
+        occ = occ | instanced_any_hit(ig.verts, ig.tris, table, o, d, t_max,
+                                      bvh=ig.bvh, kernels=kernels)
     return occ
 
 
@@ -271,9 +304,97 @@ def make_interaction(scene, cfg, o, d, hit: Hit) -> Interaction:
                                light_tri)
 
 
+def _instanced_intermediates(scene, cfg, hit: Hit):
+    """Triangle interaction intermediates of the instance-hit lanes: the
+    base triangle's vertices go to world space through each lane's
+    object-to-world matrix, its normals through the inverse-transpose, and
+    then the world-space triangle formulas apply, as for a flattened copy.
+    Instances carry no area light."""
+    ig = scene.instanced
+    code = torch.where(hit.kind == PRIM_INST, hit.prim, 0).long()
+    inst = code // cfg.n_inst_tris
+    tidx = code % cfg.n_inst_tris
+    m = ig.obj_to_world[inst]        # (N,4,4)
+    tv = ig.tris[tidx].long()
+
+    def to_world_p(p):
+        return mat_vec(m[:, :3, :3], p) + m[:, :3, 3]
+
+    p0, p1, p2 = (to_world_p(ig.verts[tv[:, k]]) for k in range(3))
+    b = hit.b
+    p = b[:, 0:1] * p0 + b[:, 1:2] * p1 + b[:, 2:3] * p2
+    p_err = gamma(7) * (
+        torch.abs(b[:, 0:1] * p0) + torch.abs(b[:, 1:2] * p1)
+        + torch.abs(b[:, 2:3] * p2))
+    ng = normalize(cross(p0 - p2, p1 - p2))
+    dpdu = p1 - p0
+    if ig.uvs is not None:
+        uv0, uv1, uv2 = (ig.uvs[tv[:, k]] for k in range(3))
+        duv02 = uv0 - uv2
+        duv12 = uv1 - uv2
+        det = duv02[:, 0] * duv12[:, 1] - duv02[:, 1] * duv12[:, 0]
+        ok = torch.abs(det) > 1e-12
+        inv = torch.where(ok, 1.0 / det, 0.0)
+        dpdu_uv = (duv12[:, 1:2] * (p0 - p2) - duv02[:, 1:2] * (p1 - p2)) * inv[:, None]
+        dpdu = torch.where(ok[:, None], dpdu_uv, dpdu)
+        uv = b[:, 0:1] * uv0 + b[:, 1:2] * uv1 + b[:, 2:3] * uv2
+    else:
+        uv = torch.stack([b[:, 1] + b[:, 2], b[:, 2]], dim=-1)
+    if ig.normals is not None:
+        w2o_t = ig.world_to_obj[inst][:, :3, :3].transpose(-1, -2)
+        n0, n1, n2 = (mat_vec(w2o_t, ig.normals[tv[:, k]]) for k in range(3))
+        ns = normalize(b[:, 0:1] * n0 + b[:, 1:2] * n1 + b[:, 2:3] * n2,
+                       eps=1e-20)
+        degen = torch.sum(ns * ns, dim=-1) < 0.5
+        ns = torch.where(degen[:, None], ng, ns)
+        ng = face_forward(ng, ns)
+    else:
+        ns = ng
+    over = ig.inst_mat[inst]
+    mat = torch.where(over >= 0, over, ig.tri_mat[tidx])
+    return p, p_err, ng, ns, dpdu, uv, mat, torch.full_like(mat, -1)
+
+
+def _bump(scene, mat, uv, ns, dpdu):
+    """Bump mapping: the shading normal displaced by forward differences
+    (half a texel of the top mip level) of the material's height texture
+    in uv.  Returns (ns, dpdu)."""
+    from .texture import bilinear_lookup
+
+    atlas, offs, sizes = scene.textures
+    mi = torch.clamp(mat, min=0).long()
+    b_tex = scene.materials.bump_tex[mi]
+    b_scale = scene.materials.bump_scale[mi]
+    has_b = (b_tex >= 0)[:, None]
+    tid = torch.clamp(b_tex, min=0)
+    du = 0.5 / sizes[0].to(torch.float32)
+    step_u = torch.stack([du, torch.zeros_like(du)])
+    step_v = torch.stack([torch.zeros_like(du), du])
+    h0 = bilinear_lookup(atlas, offs, sizes, tid, uv)[..., 0]
+    hu = bilinear_lookup(atlas, offs, sizes, tid, uv + step_u)[..., 0]
+    hv = bilinear_lookup(atlas, offs, sizes, tid, uv + step_v)[..., 0]
+    dhdu = (hu - h0) / du * b_scale
+    dhdv = (hv - h0) / du * b_scale
+    # perturbed frame: dpdu' = dpdu + dh/du * ns; dpdv' = ts0 + dh/dv * ns
+    ts0 = cross(ns, normalize(dpdu, eps=1e-20))
+    dpdu_b = dpdu + dhdu[:, None] * ns
+    dpdv_b = ts0 + dhdv[:, None] * ns
+    ns_b = face_forward(normalize(cross(dpdu_b, dpdv_b), eps=1e-20), ns)
+    return torch.where(has_b, ns_b, ns), torch.where(has_b, dpdu_b, dpdu)
+
+
 def _finish_interaction(scene, cfg, o, d, hit, p_tri, p_err_tri, ng_tri,
                         ns_tri, dpdu_tri, uv_tri, mat_tri, light_tri):
     g = scene.geom
+    if getattr(cfg, "n_inst", 0) > 0:
+        inst = _instanced_intermediates(scene, cfg, hit)
+        im = hit.kind == PRIM_INST
+        imc = im[:, None]
+        p_tri, p_err_tri, ng_tri, ns_tri, dpdu_tri, uv_tri = (
+            torch.where(imc, a, b) for a, b in zip(
+                inst[:6], (p_tri, p_err_tri, ng_tri, ns_tri, dpdu_tri, uv_tri)))
+        mat_tri = torch.where(im, inst[6], mat_tri)
+        light_tri = torch.where(im, inst[7], light_tri)
     if cfg.n_sphs > 0:
         is_sph = hit.kind == PRIM_SPH
         sph_idx = torch.where(is_sph, hit.prim, 0).long()
@@ -309,6 +430,9 @@ def _finish_interaction(scene, cfg, o, d, hit, p_tri, p_err_tri, ng_tri,
         p, p_err, ng, ns, dpdu, uv, mat, light = (
             p_tri, p_err_tri, ng_tri, ns_tri, dpdu_tri, uv_tri, mat_tri,
             light_tri)
+
+    if getattr(cfg, "has_bump", False) and scene.textures is not None:
+        ns, dpdu = _bump(scene, mat, uv, ns, dpdu)
 
     # shading frame: ss = normalized dpdu orthogonalized against ns
     ss = dpdu - ns * torch.sum(ns * dpdu, dim=-1, keepdim=True)

@@ -1,9 +1,10 @@
 """Scene presets replicating the reference renderer's hardcoded scenes:
 the Cornell box with its two-triangle area light and skybox (optionally with
-a mesh behind a BVH), its glass / mirror / Disney box twin of the reference
-renderer's `gmd` scene, its three scenes with participating media, the
-single-sphere point-light scene, and the environment-lit textured mesh
-scene.  The presets that need instancing are not ported yet.
+a mesh behind a BVH), with glass / mirror / Disney spheres, its glass /
+mirror / Disney box twin of the reference renderer's `gmd` scene, its metal
+and plastic box twin of the `metal` scene, its three scenes with
+participating media, the Cornell box with instanced boxes, the single-sphere
+point-light scene, and the environment-lit textured mesh scene.
 """
 
 import os
@@ -97,6 +98,81 @@ def cornell_box(width=500, height=500, sigma=60.0, skybox=True,
         b.add_mesh(v, t, mat, transform=xf)
     if skybox:
         b.add_skybox_light()
+    scene = b.build(bvh=bvh, device=device)
+    cam = make_perspective_camera(width, height, eye=(0.0, 0.0, 5.0),
+                                  look=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),
+                                  device=device)
+    return scene, cam
+
+
+def cornell_glass(width=500, height=500, device="cuda"):
+    """Cornell + area light + a glass, a mirror and a Disney sphere."""
+    b = SceneBuilder()
+    mats = reference_materials(b, sigma=60.0)
+    add_cornell(b, mats["red"], mats["blue"], mats["white"])
+    add_area_lights(b, mats["dragon"])
+    glass = b.add_glass(eta=1.5)
+    disney = b.add_disney((0.7, 0.3, 0.2), rough_u=0.3, metallic=0.4,
+                          clearcoat=1.0, sheen=0.5)
+    b.add_sphere((-1.3, -1.6, 0.2), 0.9, glass)
+    b.add_sphere((1.3, -1.6, -0.5), 0.9, mats["mirror"])
+    b.add_sphere((0.0, -1.8, 1.2), 0.7, disney)
+    scene = b.build(device=device)
+    cam = make_perspective_camera(width, height, eye=(0.0, 0.0, 5.0),
+                                  look=(0.0, 0.0, 0.0), device=device)
+    return scene, cam
+
+
+def cornell_metal(width=500, height=500, device="cuda"):
+    """Cornell + area light + two boxes carrying the reference application's
+    own Metal preset (eta (.2,.2,.8), k (.11,.11,.11), roughness .15 taken
+    as alpha: remap_rough 0) and Plastic preset (purple kd, ks = 1 - kd,
+    roughness .1): the twin of the reference renderer's `metal` parity
+    scene (its box literals)."""
+    b = SceneBuilder()
+    mats = reference_materials(b, sigma=0.0)
+    add_cornell(b, mats["red"], mats["blue"], mats["white"])
+    add_area_lights(b, mats["dragon"])
+    metal = b.add_metal((0.2, 0.2, 0.8), (0.11, 0.11, 0.11),
+                        roughness=0.15, remap_rough=0.0)
+    plastic = b.add_plastic((0.35, 0.12, 0.48), ks=(0.65, 0.88, 0.52),
+                            roughness=0.1)
+    for lo, hi, mat in (
+            ((-1.6, -2.5, -0.5), (-0.3, -1.1, 0.7), metal),
+            ((0.5, -2.5, -0.9), (1.8, -0.9, 0.4), plastic)):
+        v, f = _box_mesh(np.asarray(lo), np.asarray(hi))
+        b.add_mesh(v, f, mat)
+    scene = b.build(device=device)
+    cam = make_perspective_camera(width, height, eye=(0.0, 0.0, 5.0),
+                                  look=(0.0, 0.0, 0.0), device=device)
+    return scene, cam
+
+
+def cornell_instanced(width=128, height=128, flatten=False, n_inst=3,
+                      bvh=False, device="cuda"):
+    """Cornell box + n_inst instanced copies of one 12-triangle box
+    (rotated about y, scaled 1.2x more in y than in x and z, translated).
+    bvh: build the scene's tree and the box's own tree.  flatten=True adds
+    each copy to the scene's triangles instead (add_mesh with the same
+    transform): the same geometry, for comparing the instanced render with
+    the flattened one."""
+    b = SceneBuilder()
+    mats = reference_materials(b)
+    add_cornell(b, mats["red"], mats["blue"], mats["white"])
+    add_area_lights(b, mats["dragon"])
+    v, f = _box_mesh((-0.5, -0.5, -0.5), (0.5, 0.5, 0.5))
+    xforms = []
+    for i in range(n_inst):
+        s = 0.8 + 0.3 * i
+        m = _rot_y(25.0 * (i + 1)) @ np.diag([s, s * 1.2, s, 1.0])
+        m = _translate([-1.5 + 1.5 * i, -2.9 + 0.6 * s, -0.5 + 0.4 * i]) @ m
+        xforms.append(m.astype(np.float32))
+    if flatten:
+        for m in xforms:
+            b.add_mesh(v, f, mats["white"], transform=m)
+    else:
+        b.add_instances(v, f, np.stack(xforms), material=mats["white"],
+                        bvh=bvh)
     scene = b.build(bvh=bvh, device=device)
     cam = make_perspective_camera(width, height, eye=(0.0, 0.0, 5.0),
                                   look=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0),

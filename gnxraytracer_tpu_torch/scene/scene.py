@@ -5,11 +5,11 @@ into the material / light tables and hit records gather per-hit parameters
 by id.  Field names are those of the JAX package's scene tables, so state
 carries across by name (see convert.py).
 
-Ported so far: triangle meshes, spheres, every material kind, point / spot /
-distant / area / environment-map / skybox lights, image textures,
-homogeneous and grid media behind null-material boundaries, and the SAH BVH
-build (with big-prim separation).  The LBVH build and instancing raise
-NotImplementedError.
+Triangle meshes, spheres, instanced copies of one base mesh, every material
+kind, point / spot / distant / area / environment-map / skybox lights, image
+textures (and bump maps), homogeneous and grid media behind null-material
+boundaries, the SAH BVH build (with big-prim separation) and the LBVH build
+(ops/lbvh.py).
 """
 
 from typing import NamedTuple, Optional
@@ -49,6 +49,22 @@ class Geometry(NamedTuple):
     sph_mat: torch.Tensor         # (S,) i32
     sph_light: torch.Tensor       # (S,) i32
     sph_medium: torch.Tensor      # (S,2) i32 [inside, outside]
+
+
+class InstancedGeom(NamedTuple):
+    """One object-space base mesh and I rows of object<->world matrices.
+    Casts run in object space (ops/instancing.py); the interaction
+    transforms the hit triangle's vertices and normals back to world space
+    (ops/trace.py)."""
+    verts: torch.Tensor          # (V,3) f32 object space
+    tris: torch.Tensor           # (T,3) i32
+    normals: Optional[torch.Tensor]  # (V,3) object-space shading normals
+    uvs: Optional[torch.Tensor]      # (V,2)
+    tri_mat: torch.Tensor        # (T,) i32 base material per triangle
+    obj_to_world: torch.Tensor   # (I,4,4)
+    world_to_obj: torch.Tensor   # (I,4,4)
+    inst_mat: torch.Tensor       # (I,) i32 per-instance material override, -1
+    bvh: Optional[tuple]         # BVH over the base mesh (ops/bvh.py) or None
 
 
 class MediumTable(NamedTuple):
@@ -140,8 +156,9 @@ class Scene(NamedTuple):
     world_center: torch.Tensor  # (3,)
     world_radius: torch.Tensor  # ()
     bvh: Optional[tuple]  # BVH tables (ops/bvh.py) or None -> brute force
+    # spatial light distribution (models/light_dist.SpatialLightDist)
     light_dist: Optional[tuple] = None
-    instanced: Optional[tuple] = None
+    instanced: Optional[InstancedGeom] = None
     # power-strategy selection pmf, precomputed at build.  Frozen w.r.t.
     # emission updates, which keeps the estimator unbiased (any fixed pmf
     # does) and the selection pdf detached for gradients.
@@ -201,6 +218,7 @@ class SceneBuilder:
         self.lights = []  # dicts
         self.textures = []  # host images for the mip atlas
         self.env = None
+        self.instanced = None
         self.camera_medium = -1
         self._vtx_count = 0
         self._has_normals = False
@@ -230,11 +248,6 @@ class SceneBuilder:
                                density=np.asarray(density, np.float32),
                                world_to_medium=w2m))
         return len(self.media) - 1
-
-    # -- not ported yet ------------------------------------------------------
-
-    def add_instances(self, *a, **kw):
-        raise NotImplementedError("instancing is not ported yet")
 
     # -- materials -----------------------------------------------------------
 
@@ -269,6 +282,26 @@ class SceneBuilder:
                   rough_u=0.0, rough_v=0.0):
         return self.add_material(MAT_GLASS, kr=kr, kt=kt, eta=eta,
                                  rough_u=rough_u, rough_v=rough_v)
+
+    # Copper conductor spectrum (the standard RGB conversions of measured
+    # copper n / k), the default of add_metal
+    COPPER_ETA = (0.2004, 0.9240, 1.1022)
+    COPPER_K = (3.9129, 2.4528, 2.1421)
+
+    def add_metal(self, eta3=None, k3=None, roughness=0.01, remap_rough=1.0):
+        """A microfacet conductor; eta3 / k3 default to copper.  remap_rough
+        = 0 takes the roughness as the microfacet alpha itself."""
+        if eta3 is None:
+            eta3 = self.COPPER_ETA
+        if k3 is None:
+            k3 = self.COPPER_K
+        return self.add_material(MAT_METAL, eta3=eta3, k3=k3,
+                                 rough_u=roughness, rough_v=roughness,
+                                 remap_rough=remap_rough)
+
+    def add_plastic(self, kd, ks=(1.0, 1.0, 1.0), roughness=0.1):
+        return self.add_material(MAT_PLASTIC, kd=kd, ks=ks, rough_u=roughness,
+                                 rough_v=roughness)
 
     def add_disney(self, color, **kw):
         return self.add_material(MAT_DISNEY, kd=color, **kw)
@@ -310,6 +343,35 @@ class SceneBuilder:
         self._vtx_count += len(v)
         first_tri = sum(len(t) for t in self.triangles[:-1])
         return first_tri, n
+
+    def add_instances(self, vertices, triangles, transforms, material=-1,
+                      normals=None, uvs=None, per_instance_material=None,
+                      bvh=False):
+        """Instanced copies of one base mesh.  transforms: (I,4,4)
+        object-to-world matrices; material: the base material id of every
+        triangle, or an array of per-triangle ids; per_instance_material:
+        optional (I,) overrides (-1 rows keep the base); bvh: build a tree
+        over the base mesh, which every instance's cast walks.  One
+        instanced mesh per scene.  Returns the instance count."""
+        if self.instanced is not None:
+            raise ValueError("one instanced mesh per scene")
+        v = np.asarray(vertices, np.float32)
+        t = np.asarray(triangles, np.int32).reshape(-1, 3)
+        m = np.asarray(transforms, np.float64).reshape(-1, 4, 4)
+        tri_mat = (np.full(len(t), material, np.int32)
+                   if np.ndim(material) == 0
+                   else np.asarray(material, np.int32))
+        inst_mat = (np.full(len(m), -1, np.int32)
+                    if per_instance_material is None
+                    else np.asarray(per_instance_material, np.int32))
+        self.instanced = dict(
+            verts=v, tris=t,
+            normals=None if normals is None else np.asarray(normals, np.float32),
+            uvs=None if uvs is None else np.asarray(uvs, np.float32),
+            tri_mat=tri_mat, o2w=m.astype(np.float32),
+            w2o=np.linalg.inv(m).astype(np.float32), inst_mat=inst_mat,
+            bvh=bvh)
+        return len(m)
 
     def add_sphere(self, center, radius, material, light=-1, medium=(-1, -1)):
         self.sph.append((np.asarray(center, np.float32), float(radius),
@@ -358,11 +420,9 @@ class SceneBuilder:
 
     def build(self, bvh=False, device="cuda"):
         """Freeze into a Scene on `device`.  bvh: False (brute-force casts),
-        True or "sah" (host SAH build, ops/bvh.build_bvh); "lbvh" is not
-        ported yet."""
-        if bvh == "lbvh":
-            raise NotImplementedError("the LBVH build is not ported yet; use "
-                                      "build(bvh=True) for the SAH build")
+        True or "sah" (host SAH build, ops/bvh.build_bvh, with big-prim
+        separation), or "lbvh" (Morton / Karras build on the device,
+        ops/lbvh.build_lbvh; every triangle in the tree)."""
         dev = resolve_device(device)
 
         def put(a):
@@ -433,10 +493,31 @@ class SceneBuilder:
             for k in LightTable._fields
         })
 
-        # world bounds -> bounding sphere
+        instanced = None
+        if self.instanced is not None:
+            ig = self.instanced
+            ig_bvh = None
+            if ig["bvh"]:
+                from ..ops.bvh import build_bvh
+
+                ig_bvh = build_bvh(ig["verts"], ig["tris"], device=dev)
+            instanced = InstancedGeom(
+                verts=put(ig["verts"]), tris=put(ig["tris"]),
+                normals=None if ig["normals"] is None else put(ig["normals"]),
+                uvs=None if ig["uvs"] is None else put(ig["uvs"]),
+                tri_mat=put(ig["tri_mat"]), obj_to_world=put(ig["o2w"]),
+                world_to_obj=put(ig["w2o"]), inst_mat=put(ig["inst_mat"]),
+                bvh=ig_bvh)
+
+        # world bounds -> bounding sphere, over the transformed instances too
         pts = [verts] if len(verts) else []
         if len(sc):
             pts += [sc - sr[:, None], sc + sr[:, None]]
+        if self.instanced is not None:
+            ig = self.instanced
+            vh = np.concatenate([ig["verts"], np.ones((len(ig["verts"]), 1),
+                                                      np.float32)], 1)
+            pts += [(vh @ m.T)[:, :3] for m in ig["o2w"]]
         allp = np.concatenate(pts, 0) if pts else np.zeros((1, 3), np.float32)
         lo, hi = allp.min(0), allp.max(0)
         center = (lo + hi) / 2
@@ -496,7 +577,11 @@ class SceneBuilder:
 
         bvh_tables = None
         big_idx = None
-        if bvh:
+        if bvh == "lbvh":
+            from ..ops.lbvh import build_lbvh
+
+            bvh_tables = build_lbvh(verts, tris, device=dev)
+        elif bvh:
             from ..ops.bvh import build_bvh
 
             # big-prim separation: a few huge triangles (a ground plane)
@@ -520,7 +605,7 @@ class SceneBuilder:
             world_center=torch.tensor(center, dtype=torch.float32, device=dev),
             world_radius=torch.tensor(max(radius, 1e-3), dtype=torch.float32,
                                       device=dev),
-            bvh=bvh_tables,
+            bvh=bvh_tables, instanced=instanced,
             big_tri_idx=(None if big_idx is None
                          else put(big_idx.astype(np.int32))),
         )

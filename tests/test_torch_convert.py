@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from gnxraytracer_tpu.models import light_dist as J_ld
 from gnxraytracer_tpu.models.integrators import path as J_path
 from gnxraytracer_tpu.ops import samplers as J_smp
 from gnxraytracer_tpu.scene import camera as J_cam
@@ -155,7 +156,8 @@ COMPUTED_ON_DEVICE = ("scene.light_pmf", "scene.env.cond_func",
                       "scene.env.marg_cdf", "scene.env.marg_int",
                       "scene.env.le_func")
 # the JAX package's TPU-only tables, which the port does not carry
-TPU_ONLY = ("scene.env.cond_inv", "scene.bvh.treelets", "scene.bvh.wtreelets")
+TPU_ONLY = ("scene.env.cond_inv", "scene.bvh.treelets", "scene.bvh.wtreelets",
+            "scene.instanced.bvh.treelets", "scene.instanced.bvh.wtreelets")
 
 
 def assert_tables_equal(ours, theirs, path=""):
@@ -327,19 +329,19 @@ def test_unported_state_is_refused():
                  medium=(med, -1))
     b.add_point_light((0, 3, 0), (10, 10, 10))
     tree = np_tree(b.build())
-    # media cross over since the volumetric slice; the spatial light
-    # distribution and instancing are refused
+    # media cross over since the volumetric slice, and since the
+    # scene-feature slice the spatial light distribution and instances
     got = convert.scene_from_numpy(tree, device="cpu")
     assert_tables_equal(got.media, tree.media, "scene.media")
-    for field in ("light_dist", "instanced"):
-        with pytest.raises(NotImplementedError, match=field):
-            convert.scene_from_numpy(tree._replace(**{field: ("x",)}),
-                                     device="cpu")
-    # a tree without octant links (the on-device morton build)
-    js, _ = J_presets.cornell_box(16, 16, bvh=True)
-    with pytest.raises(NotImplementedError):
-        convert.bvh_from_numpy_tree(np_tree(js.bvh)._replace(first8=None),
-                                    device="cpu")
+    cfg = J_path.make_config(b.build(), 8, 8, spp=1)
+    dist = J_ld.build_spatial_distribution(b.build(), cfg, res=2, n_samples=2)
+    got = convert.scene_from_numpy(tree._replace(light_dist=np_tree(dist)),
+                                   device="cpu")
+    assert_tables_equal(got.light_dist, np_tree(dist), "scene.light_dist")
+    js, _ = J_presets.cornell_instanced(8, 8, bvh=True)
+    got = convert.scene_from_numpy(np_tree(js), device="cpu")
+    assert_tables_equal(got.instanced, np_tree(js.instanced),
+                        "scene.instanced")
     # the Halton sampler crosses over now; an unknown kind is refused
     with pytest.raises(ValueError):
         convert.sampler_from_numpy(

@@ -451,11 +451,10 @@ def test_grad_wrt_texture_texels():
 
 
 def test_grad_wrt_roughness():
-    """Twin of TestGradientSurface::test_grad_wrt_roughness with a Disney
-    plane in place of the plastic one (the port's plastic builder comes in a
-    later slice): directional FD against AD, the same rtol."""
-    scene, cam, cfg, smp = _plane_scene(lambda b: b.add_disney(
-        (0.4, 0.4, 0.4), rough_u=0.3, rough_v=0.3))
+    """Twin of TestGradientSurface::test_grad_wrt_roughness: the plastic
+    plane, directional FD against AD, the same rtol."""
+    scene, cam, cfg, smp = _plane_scene(lambda b: b.add_plastic(
+        (0.4, 0.4, 0.4), roughness=0.3))
 
     def loss(r):
         sc = scene._replace(materials=scene.materials._replace(

@@ -1,8 +1,9 @@
 """The port stands alone: importing it pulls in neither jax nor the JAX
 package; its entry points refuse to run without a CUDA device unless the
-caller names the CPU; and every branch that is not ported yet raises
-NotImplementedError (or, from the CLI, exits with a message that names what
-to use instead) rather than doing something else."""
+caller names the CPU; and every branch that is not ported yet (the per-lane
+BVH walks, the CLI's live viewers) raises NotImplementedError (or, from the
+CLI, exits with a message that names it) rather than doing something
+else."""
 
 import ast
 import os
@@ -21,12 +22,15 @@ from gnxraytracer_tpu_torch.models.integrators import direct as T_direct
 from gnxraytracer_tpu_torch.models.integrators import path as T_path
 from gnxraytracer_tpu_torch.models.integrators import whitted as T_whitted
 from gnxraytracer_tpu_torch.ops import bvh as T_bvh
+from gnxraytracer_tpu_torch.ops import instancing as T_inst
+from gnxraytracer_tpu_torch.ops import lbvh as T_lbvh
 from gnxraytracer_tpu_torch.ops import samplers as T_smp
 from gnxraytracer_tpu_torch.ops import trace as T_trace
 from gnxraytracer_tpu_torch.scene import camera as T_cam
 from gnxraytracer_tpu_torch.scene import loaders as T_load
 from gnxraytracer_tpu_torch.scene import presets as T_presets
 from gnxraytracer_tpu_torch.scene import scene as T_scene
+from gnxraytracer_tpu_torch.utils import transform as T_tf
 from gnxraytracer_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,7 +62,8 @@ def test_every_module_is_found():
                  "models.lights", "models.microfacet", "models.disney",
                  "models.media", "models.integrators.volpath",
                  "parallel.sharding", "scene.presets", "scene.loaders",
-                 "utils.image"):
+                 "utils.image", "utils.transform", "ops.instancing",
+                 "ops.lbvh"):
         assert f"gnxraytracer_tpu_torch.{want}" in mods
 
 
@@ -205,6 +210,19 @@ ENTRY_POINTS = {
         np.zeros((1, 3)), np.ones((1, 3)), np.zeros(1, np.int32),
         np.ones(1, np.int32), np.asarray([0, -1, -1, -1]), np.zeros((4, 9)),
         np.asarray([-1]), **kw),
+    "build_lbvh": lambda **kw: T_lbvh.build_lbvh(
+        *T_load.make_blob_mesh(8)[:2], **kw),
+    "make_instances": lambda **kw: T_inst.make_instances(
+        np.eye(4)[None], **kw),
+    "make_animated_instances": lambda **kw: T_inst.make_animated_instances(
+        np.eye(4)[None], np.eye(4)[None], **kw),
+    "make_animated_transform": lambda **kw: T_tf.make_animated_transform(
+        np.eye(4), np.eye(4), **kw),
+    "quat_identity": lambda **kw: T_tf.quat_identity(**kw),
+    "cornell_glass": lambda **kw: T_presets.cornell_glass(8, 8, **kw),
+    "cornell_metal": lambda **kw: T_presets.cornell_metal(8, 8, **kw),
+    "cornell_instanced": lambda **kw: T_presets.cornell_instanced(
+        8, 8, bvh=True, **kw),
 }
 
 
@@ -289,12 +307,7 @@ def test_cli_resume_from_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--sampler", "sobol", "--fast-mis", "--preset", "metal"], "metal"),
     (["--live", "x.png"], "--live"),
-    (["--sampler", "sobol", "--fast-mis", "--preset", "volume"], "volume"),
-    (["--sampler", "sobol", "--fast-mis", "--preset", "cornell-glass"],
-     "cornell-glass"),
-    (["--integrator", "whitted", "--preset", "gridvol"], "gridvol"),
     (["--sampler", "sobol", "--fast-mis", "--view"], "--view"),
 ])
 def test_cli_names_what_is_not_ported(argv, names):
@@ -314,7 +327,6 @@ def test_cli_renders_the_mesh_presets(preset, tmp_path, capsys):
     img = np.load(npy)
     assert img.shape == (12, 12, 3) and np.isfinite(img).all()
     assert img.mean() > 0.01
-    assert preset in cli.PORTED_PRESETS
     assert '"device": "cpu"' in capsys.readouterr().out
 
 
@@ -360,20 +372,6 @@ def _cornell():
     return T_presets.cornell_box(16, 16, device="cpu")
 
 
-def _builder_calls():
-    b = T_scene.SceneBuilder
-    return {
-        "build(bvh='lbvh')": lambda: b().build(bvh="lbvh", device="cpu"),
-        "add_instances": lambda: b().add_instances(),
-    }
-
-
-@pytest.mark.parametrize("name", sorted(_builder_calls()))
-def test_unported_builder_call_raises(name):
-    with pytest.raises(NotImplementedError):
-        _builder_calls()[name]()
-
-
 def _ported_builder_calls():
     """What the mesh path brought: each refused before and works now."""
     b = T_scene.SceneBuilder
@@ -409,6 +407,12 @@ def _ported_builder_calls():
             4, 8, 8, device="cpu"),
         "add_homogeneous_medium": lambda: media_scene().media,
         "add_grid_medium": lambda: media_scene(grid=True).media.density,
+        "add_instances": lambda: T_presets.cornell_instanced(
+            8, 8, device="cpu")[0].instanced,
+        "build(bvh='lbvh')": lambda: T_presets.cornell_box(
+            8, 8, bvh="lbvh", device="cpu")[0].bvh,
+        "add_metal": lambda: b().add_metal() == 0,
+        "add_plastic": lambda: b().add_plastic((0.5, 0.5, 0.5)) == 0,
     }
 
 
@@ -432,19 +436,15 @@ def test_ported_builder_call_works(name):
 def _render(scene=None, cam=None, **kw):
     if scene is None:
         scene, cam = _cornell()
-    replace = {k: kw.pop(k) for k in ("n_inst", "has_bump") if k in kw}
     cfg = T_path.make_config(scene, 16, 16, spp=1, spp_chunk=1, **kw)
     return T_path.render_chunk(scene, cam,
                                T_smp.make_sobol_sampler(1, device="cpu"),
-                               cfg._replace(**replace), 0, 1)
+                               cfg, 0, 1)
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fast_mis=False, light_strategy="spatial"),
-    dict(fast_mis=True, light_strategy="spatial"),
     dict(fast_mis=True, use_bvh=True, bvh_mode="stack"),
     dict(fast_mis=True, use_bvh=True, bvh_stackless=False),
-    dict(fast_mis=True, n_inst=1),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_render_branch_raises(kw):
     scene = cam = None
@@ -474,14 +474,14 @@ def test_ported_render_branch_runs(kw):
 
 
 def test_unported_material_and_light_kinds_raise():
-    """Bump maps are still refused; Disney, rough glass and the environment
-    light (refused before the mesh path) are dispatched now."""
+    """No material or light kind is refused any more: bump maps (refused
+    before the scene-feature slice) set has_bump; Disney, rough glass and
+    the environment light (refused before the mesh path) are dispatched."""
     b = T_scene.SceneBuilder()
     tex = b.add_texture(np.zeros((2, 2, 3), np.float32))
     b.add_sphere((0, 0, 0), 1.0,
                  b.add_material(T_scene.MAT_MATTE, bump_tex=tex))
-    with pytest.raises(NotImplementedError):
-        T_path.make_config(b.build(device="cpu"), 8, 8, spp=1)
+    assert T_path.make_config(b.build(device="cpu"), 8, 8, spp=1).has_bump
     b = T_scene.SceneBuilder()
     b.add_sphere((0, 0, 0), 1.0, b.add_disney((0.5, 0.5, 0.5)))
     b.add_sphere((3, 0, 0), 1.0, b.add_glass(rough_u=0.2, rough_v=0.2))
@@ -505,16 +505,25 @@ def test_unported_trace_branches_raise():
     o = torch.zeros((4, 3))
     d = torch.ones((4, 3))
     t = torch.ones((4,))
-    with pytest.raises(NotImplementedError):
-        T_trace.scene_intersect(scene, cfg._replace(n_inst=1), o, d, t)
-    with pytest.raises(NotImplementedError):
-        T_trace.scene_occluded(scene, cfg._replace(n_inst=1), o, d, t)
-    # use_bvh on a scene that was built without a tree is the caller's error
+    # instances and use_bvh on a scene that was built without them are the
+    # caller's error
     for cast in (T_trace.scene_intersect, T_trace.scene_occluded):
+        with pytest.raises(ValueError, match="add_instances"):
+            cast(scene, cfg._replace(n_inst=1, n_inst_tris=12), o, d, t)
         with pytest.raises(ValueError, match="bvh=True"):
             cast(scene, cfg._replace(use_bvh=True), o, d, t)
-    # the faithful estimator and its participating-media hook run now; what
-    # it still refuses is the spatial light distribution
-    with pytest.raises(NotImplementedError):
-        T_path._choose_light(scene, cfg._replace(light_strategy="spatial"),
-                             torch.zeros(4))
+    # what the casts still refuse: the per-lane walks
+    bscene, _ = T_presets.cornell_box(8, 8, bvh=True, device="cpu")
+    for mode in ("stack", "stackless"):
+        with pytest.raises(NotImplementedError):
+            T_trace.scene_intersect(bscene, cfg._replace(
+                use_bvh=True, bvh_mode=mode), o, d, t)
+    # the spatial strategy without a grid is the power strategy (as in the
+    # JAX package)
+    u = torch.linspace(0, 0.99, 4)
+    for got, want in zip(
+            T_path._choose_light(scene, cfg._replace(light_strategy="spatial"),
+                                 u),
+            T_path._choose_light(scene, cfg._replace(light_strategy="power"),
+                                 u)):
+        assert torch.equal(got, want)
