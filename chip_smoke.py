@@ -94,6 +94,20 @@ the CPU or to a plain version:
               distribution against the uniform strategy, a bump-mapped quad
               against the flat one.  No plain brute-force cast and no plain
               binary walk on any of these paths
+ 13. entry points and processes: (a) the bench's three workloads
+              (gnxraytracer_tpu_torch.bench: Cornell 16 spp, Whitted 16,
+              mesh 8, one rep) with their JSON keys and launches; (b)
+              utils.stats.wavefront_counters on 1M camera rays of the Cornell
+              and the mesh path; (c) two ranks of
+              ``python -m gnxraytracer_tpu_torch.parallel.multihost`` on the
+              card (gloo): the sample-, row- and pixel-split Cornell main
+              path at 8 spp against the one-process path.render, the
+              data-parallel train step (phase 10's Cornell step) against the
+              one-rank step, each rank's compaction stages and pre-thinning
+              probabilities; (d) ``cli render --live PNG --view`` at 4 spp
+              (the PNG rewritten after each chunk, the ANSI preview drawn).
+              Every launch count equals the casts made, so no cast took a
+              plain version, in the ranks too
 
 Launch counts are set to 0 just before each main path is driven and read
 just after; so are the calls of the brute-force casts' plain versions (and,
@@ -582,31 +596,6 @@ def phase_kernels(dev):
 # phase 3b: the wide-BVH kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def write_procedural_hdr(path, h=500, w=1000):
-    """A flat (non-RLE) Radiance RGBE file: a sky gradient, a darker ground
-    half and a small sun, so the environment light has something to
-    importance-sample."""
-    v = (np.arange(h, dtype=np.float32)[:, None] + 0.5) / h
-    u = (np.arange(w, dtype=np.float32)[None, :] + 0.5) / w
-    sky = np.clip(1.0 - 1.6 * v, 0.0, 1.0)
-    img = np.stack([0.25 + 0.6 * sky + 0.1 * np.sin(6.283 * u),
-                    0.30 + 0.8 * sky + 0.0 * u,
-                    0.35 + 1.4 * sky + 0.1 * np.cos(6.283 * u)], -1)
-    sun = ((u - 0.3) ** 2 * 4 + (v - 0.2) ** 2) < 0.0004
-    img[sun] = (900.0, 800.0, 600.0)
-    img = img.astype(np.float32)
-    m = img.max(-1)
-    e = np.ceil(np.log2(np.maximum(m, 1e-30))).astype(np.int32)
-    rgbe = np.zeros((h, w, 4), np.uint8)
-    rgbe[..., :3] = np.clip(img / np.exp2(e)[..., None] * 256.0, 0, 255)
-    rgbe[..., 3] = np.where(m > 1e-30, e + 128, 0)
-    with open(path, "wb") as f:
-        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
-        f.write(f"-Y {h} +X {w}\n".encode())
-        f.write(rgbe.tobytes())
-    return path
-
-
 def mesh_setup(dev, tmp, width=WIDTH, height=HEIGHT, spp=SPP, **kw):
     """Scene, camera, configuration and sampler of the mesh main path:
     presets.envmap_mesh with a procedural HDR environment, depth 8, Sobol',
@@ -616,6 +605,7 @@ def mesh_setup(dev, tmp, width=WIDTH, height=HEIGHT, spp=SPP, **kw):
     from gnxraytracer_tpu_torch.models.integrators import path
     from gnxraytracer_tpu_torch.ops import samplers
     from gnxraytracer_tpu_torch.scene import presets
+    from gnxraytracer_tpu_torch.utils.image import write_procedural_hdr
 
     hdr = os.path.join(tmp, "procedural_env.hdr")
     if not os.path.exists(hdr):
@@ -3100,6 +3090,289 @@ def phase_scene_features(dev, ch, wb, pk):
     return tuple(int(x) for x in inst_launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: entry points and processes
+# ---------------------------------------------------------------------------
+
+BENCH_SPP = {"cornell": 16, "whitted": 16, "mesh": 8}
+# all_counts' key of each record of the kernels line, in its order
+KERNEL_KEYS = ("closest_hit", "brute_any_hit", "wide_closest_hit",
+               "wide_any_hit", "packet_closest_hit", "packet_any_hit")
+RANKS = 2
+RANK_TIMEOUT_S = 240
+IMAGE_ATOL = 1e-5        # ranks against one process (JAX test_multihost.py)
+STEP_LOSS_RTOL = 1e-5    # JAX test_gradients.py::TestShardedTrainStep
+STEP_PARAM_RTOL, STEP_PARAM_ATOL = 1e-4, 1e-6
+
+
+def expect_counts(**kw):
+    """all_counts' dict with the launches named in kw and 0 elsewhere."""
+    return {k: kw.get(k, 0) for k in KERNEL_KEYS}
+
+
+def run_ranks(args, tmp):
+    """Run RANKS ranks of ``python -m gnxraytracer_tpu_torch.parallel.multihost``
+    on the card (a gloo process group on loopback: NCCL refuses two ranks on
+    one GPU) through compare_ranks.spawn_ranks.  Returns (rank 0's result,
+    each rank's record).  A rank that fails, or ranks that outlive
+    RANK_TIMEOUT_S, fail the run; every rank is stopped."""
+    from gnxraytracer_tpu_torch.tools import compare_ranks
+
+    try:
+        got, records = compare_ranks.spawn_ranks(
+            args, RANKS, os.path.join(tmp, "ranks.npz"), RANK_TIMEOUT_S)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from None
+    for rank, r in enumerate(records):
+        check((r["world"], r["device"], r["backend"]) == (RANKS, "cuda:0",
+                                                          "gloo"),
+              f"rank {rank}: not the expected world, device and backend: {r}")
+    return got, records
+
+
+def compaction_exact(records, one_process_prethin):
+    """Whether every rank applied the one process's compaction stages and
+    every p_keep (the ranks' and the one process's) was 1."""
+    return (all(r["compaction"]["stages_this_rank"]
+                == r["compaction"]["stages_one_process"]
+                and all(p == 1.0 for p in r["compaction"]["p_keep"])
+                for r in records)
+            and all(p == 1.0 for _, _, p in one_process_prethin))
+
+
+def hold_to_one_process(label, got, want, exact):
+    """The ranks' image against one process's: within IMAGE_ATOL where the
+    compaction was exact (compaction_exact), else within the bench
+    estimator's golden limits (block-8 < 0.025, mean < 0.02, relative)."""
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f"{label}: bad image {got.shape}")
+    err = float(np.abs(got - want).max())
+    berr = float(np.abs(block_mean8(got) - block_mean8(want)).mean()
+                 / want.mean())
+    merr = float(abs(got.mean() - want.mean()) / want.mean())
+    if exact:
+        check(err <= IMAGE_ATOL, f"{label}: max abs error {err}")
+    else:
+        check(berr < 0.025 and merr < 0.02,
+              f"{label}: block8 {berr}, mean {merr} over the golden limits")
+    return {"max_abs_err": err, "block8_rel_err": berr, "mean_rel_err": merr,
+            "rule": (f"atol {IMAGE_ATOL}" if exact else
+                     "golden limits: block8 < 0.025, mean < 0.02")}
+
+
+def phase_entry_points(dev, ch, wb, pk):
+    """Phase 13: the bench's three workloads at reduced spp, the wavefront
+    counters, two ranks on the card (sample, row and pixel splits of the
+    Cornell main path and the data-parallel train step) against one process,
+    and the CLI's live viewers.  Returns {path: launches of each kernel}."""
+    from gnxraytracer_tpu_torch import bench, cli
+    from gnxraytracer_tpu_torch.models.integrators import path
+    from gnxraytracer_tpu_torch.ops import samplers
+    from gnxraytracer_tpu_torch.parallel import multihost, sharding
+    from gnxraytracer_tpu_torch.scene import camera as cam_mod
+    from gnxraytracer_tpu_torch.utils import stats, viewer
+
+    t_phase = time.time()
+    by_path = {}
+
+    # (a) the bench, at reduced spp and one rep: a warm-up chunk and the
+    # timed run
+    reset_counts(ch, wb, pk)
+    cornell = bench.bench_cornell(spp=BENCH_SPP["cornell"], reps=1)
+    chunks = 1 + BENCH_SPP["cornell"] // SPP_CHUNK
+    counts = all_counts(ch, wb, pk)
+    want = expect_counts(closest_hit=chunks * (MAX_DEPTH + 1),
+                         brute_any_hit=chunks * (MAX_DEPTH + 1))
+    check(counts == want, f"bench cornell: launches {counts}, expected {want}")
+    by_path["phase 13 bench cornell"] = counts
+    reset_counts(ch, wb, pk)
+    whitted = bench.bench_whitted(spp=BENCH_SPP["whitted"], reps=1)
+    chunks = 1 + BENCH_SPP["whitted"] // 8
+    counts = all_counts(ch, wb, pk)
+    want = expect_counts(closest_hit=chunks, brute_any_hit=2 * chunks)
+    check(counts == want, f"bench whitted: launches {counts}, expected {want}")
+    by_path["phase 13 bench whitted"] = counts
+    reset_counts(ch, wb, pk)
+    mesh = bench.bench_mesh(spp=BENCH_SPP["mesh"], reps=1)
+    chunks = 1 + BENCH_SPP["mesh"] // SPP_CHUNK
+    counts = all_counts(ch, wb, pk)
+    want = expect_counts(
+        closest_hit=chunks * (MAX_DEPTH + 1), brute_any_hit=chunks * MAX_DEPTH,
+        wide_closest_hit=chunks * (MAX_DEPTH + 1),
+        wide_any_hit=chunks * MAX_DEPTH)
+    check(counts == want, f"bench mesh: launches {counts}, expected {want}")
+    by_path["phase 13 bench mesh"] = counts
+    line = {**cornell, **whitted, **mesh}
+    for k, v in line.items():
+        if isinstance(v, float):
+            check(np.isfinite(v) and v > 0, f"bench: {k} = {v}")
+    check(line["mesh_bvh_mode"] == "pallas", "bench mesh: not the kernels")
+    emit({"phase": "entry_points", "part": "a", "entry": "bench",
+          "spp": BENCH_SPP, "reps": 1, "line": line,
+          "kernel_launches": {k: by_path[f"phase 13 bench {k}"]
+                              for k in ("cornell", "whitted", "mesh")}})
+
+    # (b) the wavefront counters on 1M camera rays of each main path
+    counters = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (scene, cam, cfg, smp) in (
+                ("cornell", main_path_setup(dev)),
+                ("envmap_mesh", mesh_setup(dev, tmp)[:4])):
+            n_pix = WIDTH * HEIGHT
+            pix = torch.arange(n_pix, dtype=torch.int32,
+                               device=dev).repeat(SPP_CHUNK)
+            smp_i = torch.repeat_interleave(
+                torch.arange(SPP_CHUNK, dtype=torch.int32, device=dev), n_pix)
+            p_film, t_u, l_u = samplers.camera_sample(smp, pix, smp_i, WIDTH)
+            o, d, _ = cam_mod.generate_rays(cam, p_film, t_u, l_u)
+            torch.cuda.synchronize()
+            reset_counts(ch, wb, pk)
+            t0 = time.time()
+            c = stats.wavefront_counters(scene, cfg, smp, pix, smp_i, o, d)
+            ms = (time.time() - t0) * 1e3
+            counts = all_counts(ch, wb, pk)
+            casts = MAX_DEPTH + 1
+            want = (expect_counts(closest_hit=casts) if label == "cornell" else
+                    expect_counts(closest_hit=casts, wide_closest_hit=casts))
+            check(counts == want,
+                  f"wavefront_counters {label}: launches {counts}, {want}")
+            check(c["lanes"] == n_pix * SPP_CHUNK
+                  and 0.0 < c["primary_hit_rate"] <= 1.0
+                  and c["bounce_survival"] == sorted(c["bounce_survival"],
+                                                     reverse=True),
+                  f"wavefront_counters {label}: {c}")
+            by_path[f"phase 13 wavefront_counters {label}"] = counts
+            counters[label] = dict(c, ms=ms, kernel_launches=counts)
+    emit({"phase": "entry_points", "part": "b",
+          "entry": "utils.stats.wavefront_counters", "counters": counters})
+
+    # (c) two ranks on the card against one process
+    main_args = ["--preset", "cornell", "--width", str(WIDTH), "--height",
+                 str(HEIGHT), "--spp", str(SPP), "--spp-chunk", str(SPP_CHUNK),
+                 "--max-depth", str(MAX_DEPTH), "--fast-mis", "--compact-tail",
+                 "--count-rays"]
+    scene, cam, cfg, smp = main_path_setup(dev)
+    with path.recording_prethin() as prethin:
+        want_img = path.render(scene, cam, smp, cfg).cpu().numpy()
+    one = {"stages": [list(s) for s in path._compaction_stages(
+        cfg, WIDTH * HEIGHT * SPP_CHUNK)], "p_keep": [p for _, _, p in prethin]}
+    ranks_out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("samples", "rows", "pixels"):
+            t0 = time.time()
+            got, records = run_ranks(["--mode", mode] + main_args, tmp)
+            secs = time.time() - t0
+            # samples: each rank 4 of the 8 spp, one chunk of the whole film;
+            # rows / pixels: each rank 250 rows, two chunks of half the lanes
+            chunks = 1 if mode == "samples" else SPP // SPP_CHUNK
+            for r in records:
+                w = expect_counts(closest_hit=chunks * (MAX_DEPTH + 1),
+                                  brute_any_hit=chunks * (MAX_DEPTH + 1))
+                check(r["launches"] == w, f"{mode} rank {r['rank']}: "
+                      f"launches {r['launches']}, expected {w}")
+            exact = compaction_exact(records, prethin)
+            rec = hold_to_one_process(f"two ranks, {mode}", got["image"],
+                                      want_img, exact)
+            launches = {k: sum(r["launches"][k] for r in records)
+                        for k in records[0]["launches"]}
+            by_path[f"phase 13 two ranks {mode}"] = launches
+            ranks_out[mode] = dict(
+                rec, seconds=secs, rank_seconds=[r["seconds"] for r in records],
+                compaction_exact=exact,
+                compaction=[r["compaction"] for r in records],
+                kernel_launches=launches)
+
+        # the data-parallel train step (phase 10's Cornell configuration:
+        # 1M lanes, Halton, depth 8, the faithful estimator) against one rank
+        t0 = time.time()
+        got, records = run_ranks(
+            ["--mode", "train", "--preset", "cornell", "--width", str(WIDTH),
+             "--height", str(HEIGHT), "--spp", str(GRAD_SPP_CHUNK),
+             "--spp-chunk", str(GRAD_SPP_CHUNK), "--max-depth",
+             str(GRAD_DEPTH), "--sampler", "halton", "--lr", "1.0"], tmp)
+        secs = time.time() - t0
+    tscene, tcam = scene, cam
+    tcfg = path.make_config(tscene, WIDTH, HEIGHT, spp=GRAD_SPP_CHUNK,
+                            max_depth=GRAD_DEPTH, spp_chunk=GRAD_SPP_CHUNK,
+                            rr_threshold=1.0)
+    tsmp = samplers.make_halton_sampler(GRAD_SPP_CHUNK, WIDTH, HEIGHT,
+                                        device=dev)
+    params, target = multihost.train_inputs(tscene, tcfg)
+    reset_counts(ch, wb, pk)
+    loss, new = sharding.make_train_step(tcfg)(params, tscene, tcam, tsmp,
+                                                target, lr=1.0)
+    one_step = all_counts(ch, wb, pk)
+    w = expect_counts(closest_hit=2 * (GRAD_DEPTH + 1),
+                      brute_any_hit=GRAD_DEPTH + 1)
+    check(one_step == w, f"one-rank step: launches {one_step}, expected {w}")
+    for r in records:
+        check(r["launches"] == w, f"train rank {r['rank']}: launches "
+              f"{r['launches']}, expected {w}")
+    loss_err = abs(float(got["loss"]) - float(loss)) / abs(float(loss))
+    check(loss_err <= STEP_LOSS_RTOL, f"two-rank step: loss {got['loss']} "
+          f"against {float(loss)}")
+    param_err = {}
+    for k, v in new.items():
+        a, b = got["param_" + k], v.cpu().numpy()
+        excess = np.abs(a - b) - (STEP_PARAM_ATOL + STEP_PARAM_RTOL * np.abs(b))
+        param_err[k] = float(np.abs(a - b).max())
+        check(np.isfinite(a).all() and excess.max() <= 0,
+              f"two-rank step: {k} off by {param_err[k]}")
+        check(float(np.abs(b - params[k].cpu().numpy()).max()) > 0,
+              f"one-rank step: {k} did not move")
+    launches = {k: sum(r["launches"][k] for r in records)
+                for k in records[0]["launches"]}
+    by_path["phase 13 two ranks train step"] = launches
+    ranks_out["train"] = {
+        "loss": float(got["loss"]), "one_rank_loss": float(loss),
+        "loss_rel_err": loss_err, "loss_rtol": STEP_LOSS_RTOL,
+        "param_max_abs_err": param_err, "param_rtol": STEP_PARAM_RTOL,
+        "param_atol": STEP_PARAM_ATOL, "seconds": secs,
+        "rank_seconds": [r["seconds"] for r in records],
+        "compaction": [r["compaction"] for r in records],
+        "kernel_launches": launches}
+    emit({"phase": "entry_points", "part": "c",
+          "entry": "parallel.multihost / parallel.sharding, 2 ranks on one "
+                   "card (gloo)", "one_process_compaction": one,
+          "runs": ranks_out})
+
+    # (d) the CLI's live viewers: 4 spp in two chunks (Halton, the faithful
+    # estimator at depth 5, the CLI's defaults)
+    writes = [0]
+    update = viewer.LivePngWriter.update
+
+    def counted_update(self, img):
+        writes[0] += 1
+        update(self, img)
+    viewer.LivePngWriter.update = counted_update
+    reset_counts(ch, wb, pk)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            live = os.path.join(tmp, "live.png")
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                cli.main(["render", "--preset", "cornell", "--spp", "4",
+                          "--spp-chunk", "2", "--live", live, "--view"])
+            png_bytes = os.path.getsize(live)
+    finally:
+        viewer.LivePngWriter.update = update
+    counts = all_counts(ch, wb, pk)
+    want = expect_counts(closest_hit=2 * 2 * 6, brute_any_hit=2 * 6)
+    check(counts == want, f"cli --live --view: launches {counts}, {want}")
+    out = log.getvalue()
+    check(writes[0] == 2 and png_bytes > 0,
+          f"cli --live: {writes[0]} PNG writes, expected one a chunk")
+    check(out.count("▀") == 2 * 40 * 80,
+          f"cli --view: {out.count('▀')} half-blocks, expected 2 x 40 x 80")
+    by_path["phase 13 cli --live --view"] = counts
+    emit({"phase": "entry_points", "part": "d",
+          "entry": "cli render --live PNG --view", "png_writes": writes[0],
+          "png_bytes": png_bytes, "preview_cells": out.count("▀"),
+          "kernel_launches": counts})
+    emit({"phase": "entry_points", "seconds": time.time() - t_phase})
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3177,6 +3450,13 @@ def main():
             r["launches_by_path"] = {"main path": r["launches"],
                                      "phase 12 instanced paths": n}
             r["launches"] += n
+        # phase 13's entry points and ranks launch the main paths' kernels
+        # through the bench, the counters, the process group and the CLI
+        for path_name, counts in phase_entry_points(dev, ch, wb, pk).items():
+            for r, key in zip(records, KERNEL_KEYS):
+                r.setdefault("launches_by_path", {"main path": r["launches"]})
+                r["launches_by_path"][path_name] = counts[key]
+                r["launches"] += counts[key]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -23,11 +23,15 @@ Usage:
       --sampler sobol --fast-mis --spp 64 --out out.png
   python -m gnxraytracer_tpu_torch.cli render --preset envmap \\
       --sampler sobol --fast-mis --max-depth 8 --spp 64 --out mesh.png
+  python -m gnxraytracer_tpu_torch.cli render --preset cornell --spp 64 \\
+      --live live.png --view      # rewrite live.png and redraw an ANSI
+                                  # preview in the terminal after each chunk
   python -m gnxraytracer_tpu_torch.cli presets
 """
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
@@ -91,9 +95,6 @@ def cmd_render(args):
     from .utils.image import save_png
 
     integ = get_integrator(args.integrator)
-    if args.live or args.view:
-        raise SystemExit("the live viewers (--live, --view) are not ported "
-                         "to PyTorch yet")
     try:
         device = resolve_device("cpu" if args.cpu else "cuda")
     except RuntimeError as e:
@@ -112,6 +113,13 @@ def cmd_render(args):
     else:
         sampler = samplers.make_random_sampler(args.spp, seed=args.seed,
                                                device=device)
+
+    live_png = None
+    if args.live:
+        from .utils.viewer import LivePngWriter
+
+        live_png = LivePngWriter(args.live, tonemap=args.tonemap)
+    term_lines = 0
 
     hw = args.width * args.height
     acc = torch.zeros((hw, 3), dtype=torch.float32, device=device)
@@ -135,12 +143,25 @@ def cmd_render(args):
             torch.cuda.synchronize(device)
         dt = time.time() - t0
         s += ns
-        print(json.dumps({
+        stats = {
             "spp": s,
             "frame_time_s": round(dt, 3),
             "fps": round(1.0 / dt, 2),
             "Mpaths_per_s": round(ns * hw / dt / 1e6, 3),
-        }), flush=True)
+        }
+        print(json.dumps(stats), flush=True)
+        if live_png is not None or args.view:
+            cur = (acc.cpu().numpy().reshape(args.height, args.width, 3)
+                   / max(s, 1))
+            if live_png is not None:
+                live_png.update(cur)
+            if args.view:
+                from .utils.viewer import term_preview, term_redraw_prefix
+
+                sys.stdout.write(term_redraw_prefix(term_lines + 1))
+                term_lines = term_preview(cur, max_cols=args.view_cols,
+                                          tonemap=args.tonemap)
+                print(json.dumps(stats), flush=True)
         if args.checkpoint and (s % max(args.spp_chunk * 4, 1) == 0 or s >= args.spp):
             np.savez(args.checkpoint, acc=acc.cpu().numpy(), spp=s)
 

@@ -29,6 +29,7 @@ dims 0-4 camera; per bounce b, base = 5 + 8b:
   dim per compaction stage at the end.
 """
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -688,6 +689,25 @@ def _initial_state(cfg, o, d):
     return state
 
 
+# the compactions made while recording_prethin() runs, else None
+_prethin_log = None
+
+
+@contextlib.contextmanager
+def recording_prethin():
+    """Records every compaction made while the block runs: yields a list
+    that gets one (lanes, slots, p_keep) a compaction, p_keep as a float
+    (one copy to the host each).  A p_keep below 1 means the pre-thinning
+    dropped survivors: the estimate depends on the lanes of the wavefront,
+    not only on each lane's (pixel, sample)."""
+    global _prethin_log
+    outer, _prethin_log = _prethin_log, []
+    try:
+        yield _prethin_log
+    finally:
+        _prethin_log = outer
+
+
 def _compact(cfg, state, survivors, m, u_thin):
     """Pre-thin (RR, unbiased) the `survivors` of a wavefront and compact
     them into a fixed m-slot buffer.  Returns (state at width m, src, valid):
@@ -698,6 +718,8 @@ def _compact(cfg, state, survivors, m, u_thin):
     dev = state["o"].device
     n_cur = state["o"].shape[0]
     p_keep = _prethin_p(survivors, m)
+    if _prethin_log is not None:
+        _prethin_log.append((n_cur, m, float(p_keep)))
     kept = survivors & (u_thin < p_keep)
     beta = state["beta"] / p_keep
     slots = torch.cumsum(kept.to(torch.int64), dim=0) - 1

@@ -1,21 +1,39 @@
-"""Inverse rendering on one device: the differentiable scene parameters and
-the train step.
+"""Pixel data parallelism over a torch.distributed process group, and
+inverse rendering: the differentiable scene parameters and the train step.
 
-Counterpart of the JAX package's parallel/sharding.py (``extract_params``,
-``insert_params``, ``make_train_step``).  The JAX step shards pixels over a
-device mesh; this one runs on one device and instead takes the pixels in
-passes sized to the device's memory, accumulating their gradients before
-one update.  The mesh-sharded render and the pixel-parallel step over
-torch.distributed are not ported yet.
+Counterpart of the JAX package's parallel/sharding.py.  The JAX package
+shards the pixel axis of one logical wavefront over a jax.sharding.Mesh of
+devices in one program; here a Mesh is the ranks of a process group (one
+device each, see parallel/multihost.py), and each rank traces the lanes of
+its own rows of the image: the film is summed over the ranks with
+all_reduce, and so are the train step's loss and gradients.  With one rank
+nothing is communicated.  The scene, camera and sampler are built on every
+rank alike (they are replicated, as in the JAX package).
 
-Gradients flow through autograd: the hand-written casts return hit records
-that depend on no parameter (rays and triangles are constants of the step,
-sampled directions are detached), so they need no backward.
+Two things depend on the lanes of a wavefront, not on each lane alone: the
+compaction stages that apply (path._compaction_stages needs the width to
+divide and leave >= 256 lanes) and the pre-thinning probability of each
+compaction (path._prethin_p).  The JAX package compacts the whole
+wavefront; here each rank compacts its own lanes.  Where every stage
+applies at both widths and every p_keep is 1 (path.recording_prethin), a
+run over several ranks computes what one rank does, up to the order of
+float sums.
+
+The sharded render, like the JAX package's, takes the box filter whatever
+cfg.pixel_filter says, and generates no ray differentials.
+
+The train step takes the pixels of a rank in passes sized to the device's
+memory, accumulating their gradients before one update.  Gradients flow
+through autograd: the hand-written casts return hit records that depend on
+no parameter (rays and triangles are constants of the step, sampled
+directions are detached), so they need no backward.
 """
 
 import time
+from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..models.integrators import path as path_mod
 from ..models.integrators import volpath as volpath_mod
@@ -97,6 +115,117 @@ def insert_params(scene, p):
                           media=media, textures=textures)
 
 
+class Mesh(NamedTuple):
+    """The ranks that split the pixels: this process's rank among them and
+    their number (1: this process alone, no collective; else every rank of
+    the default process group)."""
+    rank: int
+    size: int
+
+
+def make_mesh(n_ranks=None):
+    """The mesh of n_ranks ranks: every rank of the default process group
+    (n_ranks None, or the group's size), or this process alone (1; also
+    where no process group is initialised).  Raises ValueError when fewer
+    ranks exist than were asked for, and for a mesh over part of a larger
+    group, where the ranks left out would have nothing to do."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_ranks is None:
+        n_ranks = world
+    if n_ranks > world:
+        raise ValueError(
+            f"make_mesh({n_ranks}) but only {world} rank(s) in the process "
+            "group (start the ranks with torchrun, or multihost.init)")
+    if n_ranks == 1:
+        return Mesh(rank=0, size=1)
+    if n_ranks != world:
+        raise ValueError(f"make_mesh({n_ranks}): a mesh is one rank or all "
+                         f"{world} ranks of the process group")
+    return Mesh(rank=dist.get_rank(), size=world)
+
+
+def split_range(total, index, count):
+    """(start, length) of part `index` of `count` contiguous parts of
+    range(total), each ceil(total / count) long but the last (the JAX
+    package's split; the length is <= 0 for a part past the end)."""
+    per = (total + count - 1) // count
+    start = index * per
+    return start, min(per, total - start)
+
+
+def mesh_rows(cfg, mesh):
+    """(first row, end row) of the image that `mesh.rank` renders."""
+    start, rows = split_range(cfg.height, mesh.rank, mesh.size)
+    return start, start + max(rows, 0)
+
+
+def all_reduce_sum(t, mesh):
+    """The sum of t over the mesh's ranks, on every rank; t itself on a mesh
+    of one rank.  A failed collective raises."""
+    if mesh.size == 1:
+        return t
+    buf = t.detach().contiguous().clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    return buf
+
+
+def pixel_radiance(scene, camera, sampler, cfg, pixel, sample_start,
+                   n_samples, tracer, filtered=False):
+    """(n_samples, P, 3) radiance of the pixels `pixel` at samples
+    sample_start .. + n_samples, as the JAX package's sharded paths compute
+    it: lanes are the pixels tiled n_samples times, no ray differentials, the
+    camera sample with the box filter (with filtered=True, cfg.pixel_filter:
+    the row split of parallel/multihost.py)."""
+    n_pix = pixel.shape[0]
+    pix = pixel.repeat(n_samples)
+    smp = torch.repeat_interleave(
+        int(sample_start) + torch.arange(n_samples, dtype=torch.int32,
+                                         device=pixel.device), n_pix)
+    filt = ((cfg.pixel_filter, cfg.filter_radius, cfg.filter_alpha)
+            if filtered else ())
+    p_film, t_u, l_u = samplers_mod.camera_sample(sampler, pix, smp,
+                                                  cfg.width, *filt)
+    o, d, _ = cam_mod.generate_rays(camera, p_film, t_u, l_u)
+    out = tracer(scene, cfg, sampler, pix, smp, o, d)
+    L = out[0] if cfg.count_rays else out
+    return L.reshape(n_samples, n_pix, 3)
+
+
+def render_chunk_sharded(scene, camera, sampler, cfg, mesh, sample_start,
+                         n_samples):
+    """One spp chunk with the rows of the image split over the mesh's ranks:
+    each rank traces its own rows' lanes (sample-major) and the (H*W, 3)
+    radiance sum is gathered on every rank."""
+    dev = scene.geom.vertices.device
+    r0, r1 = mesh_rows(cfg, mesh)
+    pixel = torch.arange(r0 * cfg.width, r1 * cfg.width, dtype=torch.int32,
+                         device=dev)
+    tracer = path_mod.trace_paths_fast if cfg.fast_mis else path_mod.trace_paths
+    part = torch.sum(pixel_radiance(scene, camera, sampler, cfg, pixel,
+                                    sample_start, n_samples, tracer), dim=0)
+    if mesh.size == 1:
+        return part
+    film = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
+                       device=dev)
+    film[r0 * cfg.width:r1 * cfg.width] = part
+    return all_reduce_sum(film, mesh)
+
+
+def render_sharded(scene, camera, sampler, cfg, mesh):
+    """Full sharded render: (H, W, 3) linear HDR radiance (mean over spp) on
+    every rank."""
+    dev = scene.geom.vertices.device
+    acc = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
+                      device=dev)
+    s = 0
+    while s < cfg.spp:
+        ns = min(cfg.spp_chunk, cfg.spp - s)
+        acc = acc + render_chunk_sharded(scene, camera, sampler, cfg, mesh, s,
+                                         ns)
+        s += ns
+    return (acc / cfg.spp).reshape(cfg.height, cfg.width, 3)
+
+
 def lane_bytes(cfg):
     """Peak device bytes a lane of the train step takes (see
     BYTES_PER_LANE_BOUNCE)."""
@@ -116,10 +245,12 @@ def default_lane_budget(cfg, device):
     return int(free * MEMORY_FRACTION) // lane_bytes(cfg)
 
 
-def pixel_passes(cfg, lane_budget):
-    """The passes of a step: [(first pixel, end pixel), ...], whole rows of
-    the image, as few passes as lane_budget lanes a pass allows, of equal
-    rows but the last.  Raises MemoryError when one row does not fit."""
+def pixel_passes(cfg, lane_budget, rows=None):
+    """The passes of a step over the image rows rows = (first, end) (default:
+    all): [(first pixel, end pixel), ...], whole rows, as few passes as
+    lane_budget lanes a pass allows, of equal rows but the last.  Raises
+    MemoryError when one row does not fit."""
+    r_lo, r_hi = (0, cfg.height) if rows is None else rows
     row_lanes = cfg.width * cfg.spp_chunk
     max_rows = int(lane_budget) // row_lanes
     if max_rows < 1:
@@ -127,10 +258,12 @@ def pixel_passes(cfg, lane_budget):
             f"a pass of one pixel row takes {row_lanes} lanes, over the "
             f"budget of {int(lane_budget)}; render fewer samples a step "
             "(spp_chunk) or free device memory")
-    n_passes = -(-cfg.height // max_rows)
-    rows = -(-cfg.height // n_passes)
-    return [(r * cfg.width, min(r + rows, cfg.height) * cfg.width)
-            for r in range(0, cfg.height, rows)]
+    if r_hi <= r_lo:
+        return []
+    n_passes = -(-(r_hi - r_lo) // max_rows)
+    step = -(-(r_hi - r_lo) // n_passes)
+    return [(r * cfg.width, min(r + step, r_hi) * cfg.width)
+            for r in range(r_lo, r_hi, step)]
 
 
 def pass_image(scene, camera, sampler, cfg, pixel, sample_start,
@@ -142,21 +275,15 @@ def pass_image(scene, camera, sampler, cfg, pixel, sample_start,
     (or, with integrator="volpath", the volumetric path integrator)."""
     tracer = {"path": path_mod.trace_paths,
               "volpath": volpath_mod.trace_paths}[integrator]
-    n_samples = cfg.spp_chunk
-    n_pix = pixel.shape[0]
-    pix = pixel.repeat(n_samples)
-    smp = torch.repeat_interleave(
-        int(sample_start) + torch.arange(n_samples, dtype=torch.int32,
-                                         device=pixel.device), n_pix)
-    p_film, t_u, l_u = samplers_mod.camera_sample(sampler, pix, smp, cfg.width)
-    o, d, _ = cam_mod.generate_rays(camera, p_film, t_u, l_u)
-    out = tracer(scene, cfg, sampler, pix, smp, o, d)
-    L = out[0] if cfg.count_rays else out
-    return torch.mean(L.reshape(n_samples, n_pix, 3), dim=0)
+    return torch.mean(pixel_radiance(scene, camera, sampler, cfg, pixel,
+                                     sample_start, cfg.spp_chunk, tracer),
+                      dim=0)
 
 
-def make_train_step(cfg, device=None, lane_budget=None, integrator="path"):
-    """The single-device train step for RenderCfg cfg.
+def make_train_step(cfg, device=None, lane_budget=None, integrator="path",
+                    mesh=None):
+    """The train step for RenderCfg cfg, on one device or data-parallel over
+    the ranks of `mesh` (make_mesh; None: this process alone).
 
     Returns run(params, scene, camera, sampler, target, sample_start=0,
     lr=1e-2) -> (loss, new_params): the mean squared error of the per-pixel
@@ -173,6 +300,12 @@ def make_train_step(cfg, device=None, lane_budget=None, integrator="path"):
     one pass up to the order of float sums.  Tail compaction couples the
     lanes of a wavefront, so cfg.compact_tail allows one pass only.
 
+    Over a mesh of several ranks each rank takes the passes of its own rows
+    (mesh_rows); the loss is still the mean over all H W pixels, and the
+    loss and every gradient are summed over the ranks with all_reduce
+    before the update, so every rank returns the same new parameters.  Each
+    rank compacts its own lanes (see the module's note).
+
     device: where the step runs ("cuda" when None); the scene must lie
     there.  integrator: "path" (the JAX step's) or "volpath", whose
     estimator sees the scene's media and so gives their parameters a
@@ -181,6 +314,7 @@ def make_train_step(cfg, device=None, lane_budget=None, integrator="path"):
     on a CUDA device) and the gradients (grads: {key: tensor}, zeros for
     a parameter the image does not depend on)."""
     dev = resolve_device("cuda" if device is None else device)
+    mesh = make_mesh(1) if mesh is None else mesh
 
     def run(params, scene, camera, sampler, target, sample_start=0, lr=1e-2,
             stats=None):
@@ -192,7 +326,7 @@ def make_train_step(cfg, device=None, lane_budget=None, integrator="path"):
                                  device=scene.device).reshape(hw, 3)
         budget = (default_lane_budget(cfg, scene.device) if lane_budget is None
                   else lane_budget)
-        passes = pixel_passes(cfg, budget)
+        passes = pixel_passes(cfg, budget, rows=mesh_rows(cfg, mesh))
         if cfg.compact_tail and len(passes) > 1:
             raise ValueError("cfg.compact_tail couples the lanes of a "
                              "wavefront: the step cannot split it into "
@@ -211,8 +345,12 @@ def make_train_step(cfg, device=None, lane_budget=None, integrator="path"):
             part.backward()
             clock.mark()
             loss = loss + part.detach()
+        grads = {k: v.grad for k, v in leaves.items()}
+        if mesh.size > 1:
+            loss = all_reduce_sum(loss, mesh)
+            grads = _all_reduce_grads(grads, leaves, mesh)
         with torch.no_grad():
-            new_params = {k: v if v.grad is None else v - lr * v.grad
+            new_params = {k: v if grads[k] is None else v - lr * grads[k]
                           for k, v in leaves.items()}
         if stats is not None:
             spans = clock.spans()
@@ -220,11 +358,26 @@ def make_train_step(cfg, device=None, lane_budget=None, integrator="path"):
                 passes=len(passes), lanes=[(p1 - p0) * cfg.spp_chunk
                                            for p0, p1 in passes],
                 forward_ms=sum(spans[0::2]), backward_ms=sum(spans[1::2]),
-                grads={k: (torch.zeros_like(v) if v.grad is None else v.grad)
-                       for k, v in leaves.items()})
+                grads={k: (torch.zeros_like(leaves[k]) if g is None else g)
+                       for k, g in grads.items()})
         return loss, {k: v.detach() for k, v in new_params.items()}
 
     return run
+
+
+def _all_reduce_grads(grads, leaves, mesh):
+    """grads ({key: tensor or None}) summed over the mesh's ranks in one
+    collective (a rank whose image does not depend on a parameter adds
+    zeros); every key gets a tensor."""
+    keys = sorted(grads)
+    parts = [(torch.zeros_like(leaves[k]) if grads[k] is None else grads[k])
+             for k in keys]
+    flat = all_reduce_sum(torch.cat([p.reshape(-1) for p in parts]), mesh)
+    out, i = {}, 0
+    for k, p in zip(keys, parts):
+        out[k] = flat[i:i + p.numel()].reshape(p.shape)
+        i += p.numel()
+    return out
 
 
 class _Clock:

@@ -1,9 +1,57 @@
-"""Procedural meshes, the stand-ins for the reference renderer's high-poly
-assets, and the parser of its '.volume' density grids.  The '.3d' mesh
-parser of the JAX package waits for the slice that loads such files.
+"""Asset loaders: the reference renderer's '.3d' mesh format (reader and
+writer) and its '.volume' density grids, and the procedural meshes that
+stand in for its high-poly assets.
+
+The '.3d' format is text: a header line holding "vertex N" and "face M",
+then N lines "x y z" (positions, scaled x20 when loaded, as the reference
+renderer's reader does) and M lines "3 i j k" (triangle indices).
 """
 
 import numpy as np
+
+
+def load_3d_mesh(path, scale=20.0):
+    """Parse a '.3d' mesh.  Returns (V, 3) float32 vertices (scaled by
+    scale) and (T, 3) int32 triangle indices."""
+    n_verts = n_faces = None
+    verts = []
+    faces = []
+    with open(path) as f:
+        for line in f:
+            tok = line.split()
+            if not tok:
+                continue
+            if n_verts is None or n_faces is None:
+                # header lines: "... vertex N ... face M ..."
+                for i, t in enumerate(tok):
+                    if t == "vertex" and i + 1 < len(tok):
+                        n_verts = int(tok[i + 1])
+                    if t == "face" and i + 1 < len(tok):
+                        n_faces = int(tok[i + 1])
+                continue
+            if len(verts) < n_verts:
+                verts.append([float(tok[0]), float(tok[1]), float(tok[2])])
+            elif len(faces) < n_faces:
+                # "3 i j k" or "i j k"
+                idx = tok[1:4] if len(tok) == 4 else tok[0:3]
+                faces.append([int(idx[0]), int(idx[1]), int(idx[2])])
+    v = np.asarray(verts, np.float32) * scale
+    t = np.asarray(faces, np.int32)
+    return v, t
+
+
+def save_3d(path, vertices, triangles, scale=20.0):
+    """Write a mesh in the '.3d' format: header "vertex N face M", the
+    positions divided by the load-time scale, faces as "3 i j k", so that
+    the reference renderer renders the geometry a preset builds."""
+    v = np.asarray(vertices, np.float64) / scale
+    t = np.asarray(triangles, np.int64)
+    with open(path, "w") as f:
+        f.write(f"vertex {len(v)} face {len(t)}\n")
+        for p in v:
+            f.write(f"{p[0]:.9g} {p[1]:.9g} {p[2]:.9g}\n")
+        for a, b, c in t:
+            f.write(f"3 {a} {b} {c}\n")
 
 
 def make_test_mesh(n_subdiv=4):

@@ -4,7 +4,8 @@ a mesh behind a BVH), with glass / mirror / Disney spheres, its glass /
 mirror / Disney box twin of the reference renderer's `gmd` scene, its metal
 and plastic box twin of the `metal` scene, its three scenes with
 participating media, the Cornell box with instanced boxes, the single-sphere
-point-light scene, and the environment-lit textured mesh scene.
+point-light scene, the environment-lit textured mesh scene and its twin of
+the reference renderer's `envmesh` scene.
 """
 
 import os
@@ -354,6 +355,53 @@ def _resource(name):
     the variable is unset (the presets then take their in-code fallbacks)."""
     root = os.environ.get("GNX_RESOURCES")
     return os.path.join(root, name) if root else None
+
+
+def _require(name):
+    """Path of the reference-renderer asset `name` under $GNX_RESOURCES;
+    raises FileNotFoundError naming it when it is not there."""
+    path = _resource(name)
+    if path is None or not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{name} not found (set GNX_RESOURCES to the directory that "
+            f"holds it; GNX_RESOURCES={os.environ.get('GNX_RESOURCES')!r})")
+    return path
+
+
+def envmap_mesh_parity(width=64, height=64, n_seg=50, sigma=0.0,
+                       device="cuda"):
+    """Twin of the reference renderer's `envmesh` scene: the blob mesh
+    (flat-shaded matte, as the '.3d' file the reference renderer loads has no
+    normals or uvs), an awesomeface-textured floor and the MonValley
+    environment light, whose texels get the reference renderer's load-time
+    radiance warp r*sqrt(r) so that both renderers integrate the same
+    texels.  Write the mesh for the reference renderer with
+    loaders.save_3d.  Needs awesomeface.jpg and MonValley1000.hdr under
+    $GNX_RESOURCES (FileNotFoundError naming the file otherwise).  Returns
+    (scene, camera, (vertices, triangles))."""
+    from ..utils.image import load_image
+    from .loaders import make_blob_mesh
+
+    v, t, _n, _uv = make_blob_mesh(n_seg)
+    b = SceneBuilder()
+    blob = b.add_matte((0.2, 0.8, 0.2), sigma=sigma)
+    b.add_mesh(v, t, blob, transform=_translate([0.0, -0.5, 0.0]))
+    tex = b.add_texture(load_image(_require("awesomeface.jpg"), gamma=True))
+    floor_mat = b.add_matte((1.0, 1.0, 1.0), sigma=0.0, kd_tex=tex)
+    g = 6.0
+    gv = np.array([[-g, -1.7, g], [g, -1.7, g], [-g, -1.7, -g],
+                   [g, -1.7, g], [g, -1.7, -g], [-g, -1.7, -g]], np.float32)
+    guv = np.array([[0, 0], [4, 0], [0, 4], [4, 0], [4, 4], [0, 4]],
+                   np.float32)
+    b.add_mesh(gv, np.arange(6).reshape(2, 3), floor_mat, uvs=guv)
+    img = load_image(_require("MonValley1000.hdr"))
+    img = img * np.sqrt(img)  # the reference renderer's load-time warp
+    l2w = _rot_x(20) @ _rot_y(-90) @ _rot_x(-90)
+    b.set_environment(img, light_to_world=l2w)
+    scene = b.build(device=device)
+    cam = make_perspective_camera(width, height, eye=(0.0, 0.8, 5.0),
+                                  look=(0.0, -0.3, 0.0), device=device)
+    return scene, cam, (v, t)
 
 
 def envmap_mesh(width=500, height=500, hdr_path=None, mesh=None,

@@ -37,9 +37,9 @@ def _scene(name, dev, tmp):
         scene, cam = presets.cornell_box(w, h, device=dev)
         return scene, cam, lambda spp: samplers.make_halton_sampler(
             spp, w, h, device=dev)
-    import chip_smoke as cs
+    from gnxraytracer_tpu_torch.utils.image import write_procedural_hdr
 
-    hdr = cs.write_procedural_hdr(os.path.join(tmp, "env.hdr"))
+    hdr = write_procedural_hdr(os.path.join(tmp, "env.hdr"))
     scene, cam = presets.envmap_mesh(w, h, hdr_path=hdr, device=dev)
     return scene, cam, lambda spp: samplers.make_sobol_sampler(spp, device=dev)
 

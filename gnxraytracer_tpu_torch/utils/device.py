@@ -1,5 +1,7 @@
 """Device resolution shared by every constructor and entry point."""
 
+import subprocess
+
 import torch
 
 
@@ -13,3 +15,19 @@ def resolve_device(device="cuda"):
             "no CUDA device available; pass device='cpu' (CLI: --cpu) to "
             "run on the CPU")
     return dev
+
+
+def describe_device(device):
+    """What a measurement ran on: for a CUDA device the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (raises when nvidia-smi does not
+    answer), else "cpu"."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip()

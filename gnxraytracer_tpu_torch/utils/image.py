@@ -3,7 +3,8 @@
 The film stays linear HDR (correct for parity and gradients); tonemapping
 happens only at export, with the reference renderer's exposure curve for
 visual comparison.  Loaders: Radiance RGBE (.hdr) environment maps and LDR
-texture images.
+texture images; a writer of a procedural .hdr environment for where the
+reference renderer's MonValley1000.hdr is not at hand.
 """
 
 import numpy as np
@@ -116,3 +117,28 @@ def load_image(path, gamma=True, flip_v=False):
     if flip_v:
         arr = arr[::-1]
     return arr
+
+
+def write_procedural_hdr(path, h=500, w=1000):
+    """A flat (non-RLE) Radiance RGBE file: a sky gradient, a darker ground
+    half and a small sun, so the environment light has something to
+    importance-sample."""
+    v = (np.arange(h, dtype=np.float32)[:, None] + 0.5) / h
+    u = (np.arange(w, dtype=np.float32)[None, :] + 0.5) / w
+    sky = np.clip(1.0 - 1.6 * v, 0.0, 1.0)
+    img = np.stack([0.25 + 0.6 * sky + 0.1 * np.sin(6.283 * u),
+                    0.30 + 0.8 * sky + 0.0 * u,
+                    0.35 + 1.4 * sky + 0.1 * np.cos(6.283 * u)], -1)
+    sun = ((u - 0.3) ** 2 * 4 + (v - 0.2) ** 2) < 0.0004
+    img[sun] = (900.0, 800.0, 600.0)
+    img = img.astype(np.float32)
+    m = img.max(-1)
+    e = np.ceil(np.log2(np.maximum(m, 1e-30))).astype(np.int32)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.clip(img / np.exp2(e)[..., None] * 256.0, 0, 255)
+    rgbe[..., 3] = np.where(m > 1e-30, e + 128, 0)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(rgbe.tobytes())
+    return path

@@ -45,8 +45,8 @@ from gnxraytracer_tpu_torch.parallel import sharding as T_sh
 from gnxraytracer_tpu_torch.scene import camera as T_cam
 from gnxraytracer_tpu_torch.scene import presets as T_presets
 from gnxraytracer_tpu_torch.scene import scene as T_scene
+from gnxraytracer_tpu_torch.utils.image import write_procedural_hdr
 
-from chip_smoke import write_procedural_hdr
 from test_torch_convert import np_tree, procedural_hdr
 
 RTOL_CLASS = 1e-4
