@@ -108,6 +108,20 @@ the CPU or to a plain version:
               (the PNG rewritten after each chunk, the ANSI preview drawn).
               Every launch count equals the casts made, so no cast took a
               plain version, in the ranks too
+ 14. last slice: (a) the cornell-mesh preset's tree (20,480 triangles):
+              1M camera rays and their shadow rays through the wide kernels
+              and through both per-lane walks (bvh_mode "stackless" and
+              "stack", plain PyTorch on the card): hit flag and triangle
+              agreement, t, occlusion, each walk's loop steps and capped
+              lanes, wall ms; (b) one fast-MIS chunk of that scene at
+              500x500 x 1 spp in each per-lane mode against the kernels'
+              chunk, no kernel launched in those modes; (c)
+              path.render_fused against path.render on the Cornell main path
+              at 8 spp, bit for bit, timed in turns; (d) 1M
+              bssrdf.sample_sp_probe chains on the Cornell floor through the
+              kernels' casts against the plain casts, and procedural noise,
+              fbm and marble_texture at 1M
+              points on the card against the CPU
 
 Launch counts are set to 0 just before each main path is driven and read
 just after; so are the calls of the brute-force casts' plain versions (and,
@@ -1536,6 +1550,11 @@ def all_counts(ch, wb, pk):
     """Every kernel's launches since the last reset_counts; fails if a
     brute-force cast took its plain version meanwhile."""
     check_no_plain_brute("phase 8")
+    return kernel_counts(ch, wb, pk)
+
+
+def kernel_counts(ch, wb, pk):
+    """Every kernel's launches since the last reset_counts."""
     return {"closest_hit": ch.launch_count,
             "brute_any_hit": ch.any_launch_count,
             "wide_closest_hit": wb.closest_launch_count,
@@ -3373,6 +3392,289 @@ def phase_entry_points(dev, ch, wb, pk):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the last slice: the per-lane BVH walks, render_fused, the
+# BSSRDF probe chain and the procedural textures
+# ---------------------------------------------------------------------------
+
+WALK_AGREE = 0.999       # lanes whose hit flag and triangle (occlusion) agree
+WALK_T_RTOL = 1e-5       # t where a walk and the kernels hit the same triangle
+# one path chunk against the kernels' (tests/test_torch_mesh_path.py)
+CHUNK_PIXELS, CHUNK_RTOL, CHUNK_ATOL, CHUNK_MEAN = 0.99, 1e-3, 1e-4, 0.005
+PROBE_P_ATOL = 1e-5      # sample_sp_probe's points, kernels' casts vs plain
+TEXTURE_ATOL = 1e-5      # noise, fbm, marble on the card vs on the CPU
+N_PROBES = N_TEXTURE_POINTS = 1 << 20
+
+
+def timed_ms(fn):
+    """(fn(), wall ms with the device synchronized before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.time() - t0) * 1e3
+
+
+def per_lane_casts(scene, mode):
+    """(closest, any) casts (o, d, t_max, stats) of the per-lane walk `mode`
+    over the scene's tree."""
+    from gnxraytracer_tpu_torch.ops import bvh as bvh_mod
+
+    tree, g = scene.bvh, scene.geom
+    if mode == "stack":
+        return (lambda o, d, t, s: bvh_mod.bvh_closest_hit(
+                    tree, g.vertices, g.triangles, o, d, t, stats=s),
+                lambda o, d, t, s: bvh_mod.bvh_any_hit(
+                    tree, g.vertices, g.triangles, o, d, t, stats=s))
+    return (lambda o, d, t, s: bvh_mod.bvh_closest_hit_stackless(
+                tree, o, d, t, stats=s),
+            lambda o, d, t, s: bvh_mod.bvh_any_hit_stackless(
+                tree, o, d, t, stats=s))
+
+
+def walk_agreement(what, got, ref, occ, ref_occ, t_max_shadow):
+    """A per-lane walk's casts against the kernels' on the same rays: the
+    share of lanes whose hit flag and triangle agree (Moller-Trumbore and
+    the watertight test differ only at edges and in ties), t where both hit
+    the same triangle, and occlusion."""
+    same = (got.hit == ref.hit) & (~ref.hit | (got.tri == ref.tri))
+    agree = float(same.float().mean())
+    both = got.hit & ref.hit & (got.tri == ref.tri)
+    t_rel = float(((got.t - ref.t).abs() / ref.t.abs())[both].max()) \
+        if bool(both.any()) else 0.0
+    occ_agree = float((occ == ref_occ).float().mean())
+    check(agree >= WALK_AGREE, f"{what}: hit flag and triangle agree with "
+          f"the kernels on {agree:.6f} of the lanes, under {WALK_AGREE}")
+    check(t_rel <= WALK_T_RTOL, f"{what}: t differs from the kernels' by "
+          f"{t_rel} relative")
+    check(occ_agree >= WALK_AGREE, f"{what}: occlusion agrees with the "
+          f"kernels on {occ_agree:.6f} of the lanes")
+    check(not bool(occ[t_max_shadow <= 0].any()),
+          f"{what}: a dead shadow lane is occluded")
+    return {"hit_tri_agree": agree, "hit_fraction": float(got.hit.float().mean()),
+            "t_max_rel_err": t_rel, "occ_agree": occ_agree,
+            "occluded_fraction": float(occ.float().mean())}
+
+
+def chunk_agreement(what, img, ref):
+    """One path chunk (hw, 3) against the kernels' chunk."""
+    check(bool(torch.isfinite(img).all()), f"{what}: the chunk is not finite")
+    ok = ((img - ref).abs() <= CHUNK_ATOL + CHUNK_RTOL * ref.abs()).all(dim=-1)
+    pixels = float(ok.float().mean())
+    mean_rel = abs(float(img.mean()) / float(ref.mean()) - 1.0)
+    check(pixels >= CHUNK_PIXELS and mean_rel < CHUNK_MEAN,
+          f"{what}: {pixels:.5f} of the pixels within rtol {CHUNK_RTOL} + "
+          f"atol {CHUNK_ATOL} (need {CHUNK_PIXELS}), mean off by {mean_rel}")
+    return {"pixels_within_tol": pixels, "mean_rel_err": mean_rel,
+            "image_mean": float(img.mean())}
+
+
+def phase_last_slice(dev, ch, wb, pk, smi):
+    """Phase 14.  Returns {path name: kernel counts} of its paths that launch
+    the main paths' kernels (render_fused, sample_sp_probe)."""
+    from gnxraytracer_tpu_torch.constants import INFINITY
+    from gnxraytracer_tpu_torch.models import bssrdf
+    from gnxraytracer_tpu_torch.models.integrators import path
+    from gnxraytracer_tpu_torch.ops import procedural, samplers, trace
+    from gnxraytracer_tpu_torch.scene import presets
+    from gnxraytracer_tpu_torch.scene.loaders import make_test_mesh
+
+    t_phase = time.time()
+    by_path = {}
+
+    # (a) isolated casts on the cornell-mesh preset's tree (20,480
+    # triangles; the walls and the light are kept out of it): one chunk of
+    # camera rays and their shadow rays toward the first light, through the
+    # kernels (as the scene's configuration names them) and both walks
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, mesh=make_test_mesh(5),
+                                     bvh=True, device=dev)
+    cfg = path.make_config(scene, WIDTH, HEIGHT, spp=SPP_CHUNK,
+                           spp_chunk=SPP_CHUNK, max_depth=WHITTED_DEPTH)
+    check(cfg.use_bvh and cfg.bvh_mode == "pallas" and cfg.n_big > 0,
+          f"unexpected cornell-mesh configuration {cfg}")
+    smp = samplers.make_halton_sampler(SPP_CHUNK, WIDTH, HEIGHT, device=dev)
+    _, _, o, d, _, _ = camera_hits(scene, cam, cfg, smp)
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    t_inf = torch.full((n,), INFINITY, dtype=torch.float32, device=dev)
+    li_idx = next(i for i, k in enumerate(cfg.light_kind_seq) if k != 5)
+    so, sd, st = depth0_shadow_rays(scene, cam, cfg, smp, li_idx)
+    k_closest, k_any = trace._bvh_casts(scene, cfg)
+    reset_counts(ch, wb, pk)
+    kc, kc_ms = timed_ms(lambda: k_closest(o, d, t_inf))
+    ka, ka_ms = timed_ms(lambda: k_any(so, sd, st))
+    counts = kernel_counts(ch, wb, pk)
+    check(counts["wide_closest_hit"] == 1 and counts["wide_any_hit"] == 1,
+          f"the kernels' casts of the tree launched {counts}")
+    rec = {"phase": "last_slice", "part": "a", "device": smi,
+           "scene": f"cornell-mesh ({int((scene.bvh.prim_idx >= 0).sum())} "
+                    f"triangles in the tree, {cfg.n_big} kept out)",
+           "rays": f"{n} camera rays (Halton) and their shadow rays toward "
+                   f"light {li_idx} ({float((st > 0).float().mean()):.4f} "
+                   "live)", "n_rays": n,
+           "kernels": {"closest": "wide_closest_hit", "any": "wide_any_hit",
+                       "closest_ms": kc_ms, "any_ms": ka_ms,
+                       "hit_fraction": float(kc.hit.float().mean()),
+                       "occluded_fraction": float(ka.float().mean())}}
+    hits = {}
+    for mode in ("stackless", "stack"):
+        fc, fa = per_lane_casts(scene, mode)
+        sc, sa = {}, {}
+        reset_counts(ch, wb, pk)
+        wc, wc_ms = timed_ms(lambda: fc(o, d, t_inf, sc))
+        wa, wa_ms = timed_ms(lambda: fa(so, sd, st, sa))
+        check(not any(kernel_counts(ch, wb, pk).values()),
+              f"the {mode} walk launched a kernel")
+        hits[mode] = wc
+        rec[mode] = dict(
+            closest_ms=wc_ms, any_ms=wa_ms,
+            closest_steps=sc["steps"], closest_capped_lanes=sc["capped"],
+            closest_lane_steps=sc["lane_steps"],
+            any_steps=sa["steps"], any_capped_lanes=sa["capped"],
+            any_lane_steps=sa["lane_steps"],
+            **walk_agreement(f"{mode} walk", wc, kc, wa, ka, st))
+        if mode == "stack":
+            rec[mode]["dropped_pushes"] = (sc["dropped_pushes"],
+                                           sa["dropped_pushes"])
+    a, b = hits["stack"], hits["stackless"]
+    rec["stack_vs_stackless_hit_tri_agree"] = float(
+        ((a.hit == b.hit) & (~a.hit | (a.tri == b.tri))).float().mean())
+    rec["max_trav_steps"] = 4096
+    emit(rec)
+    del o, d, so, sd, st, kc, ka, hits, a, b
+
+    # (b) one path chunk of that scene at 500x500 (one sample a pixel,
+    # fast-MIS, depth 8, Sobol') in each per-lane mode against the same
+    # chunk through the kernels: no kernel launches in the per-lane modes,
+    # whose big triangles are brute-forced by the plain loop
+    pcfg = path.make_config(scene, WIDTH, HEIGHT, spp=1, spp_chunk=1,
+                            max_depth=MAX_DEPTH, fast_mis=True)
+    psmp = samplers.make_sobol_sampler(1, device=dev)
+    reset_counts(ch, wb, pk)
+    ref, ref_ms = timed_ms(lambda: path.render_chunk(scene, cam, psmp, pcfg,
+                                                     0, 1))
+    counts = kernel_counts(ch, wb, pk)
+    check_no_plain_brute("phase 14 (b) kernels' chunk", walks=True)
+    check(counts["wide_closest_hit"] > 0 and counts["closest_hit"] > 0,
+          f"phase 14 (b): the kernels' chunk launched {counts}")
+    rec = {"phase": "last_slice", "part": "b", "device": smi,
+           "scene": "cornell-mesh", "entry": "path.render_chunk",
+           "lanes": WIDTH * HEIGHT, "max_depth": MAX_DEPTH,
+           "sampler": "sobol", "fast_mis": True,
+           "kernels": {"ms": ref_ms, "image_mean": float(ref.mean()),
+                       "kernel_launches": counts}}
+    for mode in ("stackless", "stack"):
+        reset_counts(ch, wb, pk)
+        img, ms = timed_ms(lambda: path.render_chunk(
+            scene, cam, psmp, pcfg._replace(bvh_mode=mode), 0, 1))
+        counts = kernel_counts(ch, wb, pk)
+        check(not any(counts.values()), f"phase 14 (b) {mode}: a kernel "
+              f"launched in a per-lane mode: {counts}")
+        check(PLAIN_CALLS["closest_hit_reference"] > 0,
+              f"phase 14 (b) {mode}: the big triangles were not brute-forced")
+        rec[mode] = dict(ms=ms, kernel_launches=counts,
+                         plain_brute_force_casts=dict(PLAIN_CALLS),
+                         **chunk_agreement(f"phase 14 (b) {mode}", img, ref))
+    emit(rec)
+    del scene, cam, ref
+
+    # (c) render_fused against path.render on the Cornell main path at 8 spp,
+    # in turns (fused, render, render, fused): every image bit-equal
+    c_scene, c_cam, c_cfg, c_smp = main_path_setup(dev)
+    c_cfg = c_cfg._replace(count_rays=False)  # render_fused refuses it
+    reset_counts(ch, wb, pk)
+    fused, _ = timed_ms(lambda: path.render_fused(c_scene, c_cam, c_smp, c_cfg))
+    counts = kernel_counts(ch, wb, pk)
+    check_no_plain_brute("phase 14 (c) render_fused", walks=True)
+    casts = SPP // SPP_CHUNK * (MAX_DEPTH + 1)
+    want = expect_counts(closest_hit=casts, brute_any_hit=casts)
+    check(counts == want, f"render_fused: launches {counts}, expected {want}")
+    by_path["phase 14 path.render_fused"] = counts
+    times = {"render_fused": [], "render": []}
+    for name in ("render_fused", "render", "render", "render_fused"):
+        img, ms = timed_ms(lambda: getattr(path, name)(c_scene, c_cam, c_smp,
+                                                       c_cfg))
+        times[name].append(ms)
+        check(torch.equal(fused, img), f"{name} differs from the first "
+              f"render_fused: max |diff| {float((fused - img).abs().max())}")
+    emit({"phase": "last_slice", "part": "c", "device": smi,
+          "scene": "cornell", "spp": SPP, "spp_chunk": SPP_CHUNK,
+          "order": "render_fused (counted), then render_fused, render, "
+                   "render, render_fused (timed)",
+          "render_fused_ms": times["render_fused"],
+          "render_ms": times["render"], "bit_equal": True,
+          "image_mean": float(fused.mean()), "kernel_launches": counts})
+
+    # (d) the libraries: Sample_Sp's probe chain around a point of the
+    # Cornell floor, through the kernels' casts and through the plain ones;
+    # Perlin noise, FBm and the marble texture on the card against the CPU
+    down = torch.tensor([[0.0, -1.0, 0.0]], device=dev)
+    zero = torch.zeros((1, 3), device=dev)
+    h = trace.scene_intersect(c_scene, c_cfg, zero, down,
+                              torch.full((1,), 1e9, device=dev))
+    floor = trace.make_interaction(c_scene, c_cfg, zero, down, h)
+    check(bool(h.hit[0]), "phase 14 (d): no floor below the box's center")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    u = torch.rand((N_PROBES, 4), generator=gen, device=dev)
+    eye = torch.eye(3, device=dev)
+    ns, ss, ts = (eye[i].expand(N_PROBES, 3) for i in (1, 0, 2))
+    args = (floor.p[0].expand(N_PROBES, 3), torch.zeros_like(ns), ns, ss, ts,
+            ns, 0.01 + 0.29 * u[:, 0], 2.0 * np.pi * u[:, 1],
+            torch.where(u[:, 2] < 0.1, 0.005, 0.5),
+            torch.full((N_PROBES,), int(floor.mat[0]), dtype=torch.int32,
+                       device=dev), u[:, 3])
+    out = {}
+    for label, pcfg in (("kernels", c_cfg),
+                        ("plain", c_cfg._replace(use_pallas=False))):
+        reset_counts(ch, wb, pk)
+        out[label], ms = timed_ms(lambda: bssrdf.sample_sp_probe(c_scene, pcfg,
+                                                                 *args))
+        out[label + "_ms"] = ms
+        out[label + "_counts"] = kernel_counts(ch, wb, pk)
+        out[label + "_plain_calls"] = dict(PLAIN_CALLS)
+    check(out["kernels_counts"] == expect_counts(closest_hit=4)
+          and not any(out["kernels_plain_calls"].values()),
+          f"sample_sp_probe with kernels: launches {out['kernels_counts']}, "
+          f"plain calls {out['kernels_plain_calls']}")
+    check(not any(out["plain_counts"].values()),
+          f"sample_sp_probe with plain casts launched {out['plain_counts']}")
+    by_path["phase 14 bssrdf.sample_sp_probe"] = out["kernels_counts"]
+    (kf, kpi, kn), (pf, ppi, pn) = out["kernels"], out["plain"]
+    check(torch.equal(kf, pf) and torch.equal(kn, pn),
+          "sample_sp_probe: found or n_found differ between the kernels' "
+          "casts and the plain ones")
+    p_err = float((kpi.p - ppi.p)[kf].abs().max()) if bool(kf.any()) else 0.0
+    check(p_err <= PROBE_P_ATOL and torch.equal(kpi.mat[kf], ppi.mat[kf]),
+          f"sample_sp_probe: the chosen points differ by {p_err}")
+    found = float(kf.float().mean())
+    check(0.8 < found < 0.95 and bool(torch.isfinite(kpi.p[kf]).all()),
+          f"sample_sp_probe: {found} of the probes found the floor")
+    on_floor = float((kpi.p[kf][:, 1] - floor.p[0, 1]).abs().max())
+    check(on_floor < 1e-2, f"sample_sp_probe: a point {on_floor} off the floor")
+    rec = {"phase": "last_slice", "part": "d", "device": smi,
+           "sample_sp_probe": {
+               "probes": N_PROBES, "found_fraction": found,
+               "mean_n_found": float(kn.float().mean()),
+               "kernels_ms": out["kernels_ms"], "plain_ms": out["plain_ms"],
+               "max_abs_err_p": p_err, "max_off_floor": on_floor,
+               "kernel_launches": out["kernels_counts"]}}
+    pts_cpu = torch.rand((N_TEXTURE_POINTS, 3),
+                         generator=torch.Generator().manual_seed(15)) * 20 - 10
+    pts = pts_cpu.to(dev)
+    for name, fn in (("noise", procedural.noise), ("fbm", procedural.fbm),
+                     ("marble_texture", procedural.marble_texture)):
+        got, ms = timed_ms(lambda: fn(pts))
+        want = fn(pts_cpu)
+        err = float((got.cpu() - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= TEXTURE_ATOL,
+              f"{name}: the card's values differ from the CPU's by {err}")
+        rec[name] = {"points": N_TEXTURE_POINTS, "ms": ms,
+                     "max_abs_err_vs_cpu": err, "mean": float(got.mean())}
+    emit(rec)
+    emit({"phase": "last_slice", "seconds": time.time() - t_phase})
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3455,6 +3757,13 @@ def main():
         for path_name, counts in phase_entry_points(dev, ch, wb, pk).items():
             for r, key in zip(records, KERNEL_KEYS):
                 r.setdefault("launches_by_path", {"main path": r["launches"]})
+                r["launches_by_path"][path_name] = counts[key]
+                r["launches"] += counts[key]
+        # phase 14's render_fused and probe chain launch the Cornell path's
+        # brute-force kernels
+        for path_name, counts in phase_last_slice(dev, ch, wb, pk,
+                                                  smi).items():
+            for r, key in zip(records, KERNEL_KEYS):
                 r["launches_by_path"][path_name] = counts[key]
                 r["launches"] += counts[key]
     except SmokeFailure as e:

@@ -985,3 +985,28 @@ def render(scene, camera, sampler, cfg: RenderCfg):
         s += ns
     img = acc / cfg.spp
     return img.reshape(cfg.height, cfg.width, 3)
+
+
+def render_fused(scene, camera, sampler, cfg: RenderCfg, n_chunks=None):
+    """The whole frame as n_chunks chunks of cfg.spp_chunk samples, by
+    default cfg.spp // cfg.spp_chunk (cfg.spp must then be a multiple of
+    cfg.spp_chunk; render() takes a ragged spp).  The JAX package runs this
+    loop on the device in one dispatch; here it is the same loop of
+    render_chunk as render's, summed in the same order, so the image is
+    render's bit for bit whenever spp is a multiple of spp_chunk.  Returns
+    (H, W, 3) linear HDR radiance."""
+    if cfg.count_rays:
+        raise ValueError("render_fused takes no cfg.count_rays (render_chunk "
+                         "then returns the ray count beside the image); use "
+                         "render")
+    if n_chunks is None:
+        assert cfg.spp % cfg.spp_chunk == 0, "spp % spp_chunk != 0"
+        n_chunks = cfg.spp // cfg.spp_chunk
+    dev = scene.geom.vertices.device
+    acc = torch.zeros((cfg.width * cfg.height, 3), dtype=torch.float32,
+                      device=dev)
+    for ci in range(n_chunks):
+        acc = acc + render_chunk(scene, camera, sampler, cfg,
+                                 ci * cfg.spp_chunk, cfg.spp_chunk)
+    img = acc / (n_chunks * cfg.spp_chunk)
+    return img.reshape(cfg.height, cfg.width, 3)

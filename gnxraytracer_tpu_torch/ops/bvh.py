@@ -1,5 +1,6 @@
-"""BVH: host-side SAH build in numpy into SoA tables, and the coherence
-sort of a ray wavefront.
+"""BVH: host-side SAH build in numpy into SoA tables, the per-lane walks of
+the tree (the lockstep stack walk and the threaded walk, plain PyTorch),
+and the coherence sort of a ray wavefront.
 
 The build is the binary tree of the JAX package's ops/bvh.py, table for table
 (the tests hold them byte-equal): a 12-bucket surface-area-heuristic builder
@@ -22,9 +23,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..constants import INFINITY
 from ..utils.device import resolve_device
+from .intersect import TriHit
 
 LEAF_SIZE = 4
+MAX_STACK = 64  # a stack walk's depth a lane (the reference's 64-deep stack)
+MAX_TRAV_STEPS = 4096  # the per-lane walks' step cap
 
 
 class PacketPack(NamedTuple):
@@ -394,6 +399,333 @@ def build_bvh_numpy(vertices, triangles, leaf_size=LEAF_SIZE):
         np.asarray(nodes_ax, np.int32),
         order_arr,
     )
+
+
+# ---------------------------------------------------------------------------
+# Per-lane walks (plain PyTorch, any device)
+# ---------------------------------------------------------------------------
+#
+# The JAX package's lockstep walks, lane for lane: every lane keeps its own
+# cursor (and, in the stack walks, its own stack), and all lanes take one
+# step together until none is left walking or MAX_TRAV_STEPS steps have been
+# taken.  The leaf test is Moller-Trumbore, not the watertight test of the
+# kernels.  A step here is taken only by the lanes that were still walking
+# at the last check (every SYNC_STEPS steps): a lane that has finished does
+# not change any more, so leaving it out changes no result, and the checks
+# never let the loop run past step MAX_TRAV_STEPS.
+
+def _slab_test(lo, hi, o, inv_d, t_max):
+    """Bounds3::IntersectP slab test batched over lanes, with the gamma(3)
+    widening of the far distance."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    t_near = torch.amax(torch.minimum(t0, t1), dim=-1)
+    t_far = torch.amin(torch.maximum(t0, t1), dim=-1) * (1.0 + 2.0 * 7.2e-7)
+    return (t_near <= t_far) & (t_far > 0) & (t_near < t_max)
+
+
+def _leaf_rows(prim_idx, leaf_off):
+    """(N, LEAF_SIZE) rows of the reordered primitive list from leaf_off on.
+    An inner node's offset is its second child's node id, which may lie past
+    the list: the index is clamped to its last row, as a JAX gather clamps
+    it (the values are masked out by the caller)."""
+    rows = leaf_off.long()[:, None] + torch.arange(
+        LEAF_SIZE, dtype=torch.long, device=leaf_off.device)[None, :]
+    return torch.clamp(rows, 0, prim_idx.shape[0] - 1)
+
+
+def _moller_trumbore(p0, p1, p2, o, d, ok, t_best):
+    """Moller-Trumbore against (N, K) triangles: (t, valid, uv (N,K,2))."""
+    e1 = p1 - p0
+    e2 = p2 - p0
+    dv = d[:, None].expand_as(e2)
+    pv = torch.linalg.cross(dv, e2, dim=-1)
+    det = torch.sum(e1 * pv, dim=-1)
+    big = torch.abs(det) > 1e-12
+    inv = torch.where(big, 1.0 / det, 0.0)
+    tv = o[:, None] - p0
+    u = torch.sum(tv * pv, dim=-1) * inv
+    qv = torch.linalg.cross(tv, e1, dim=-1)
+    v = torch.sum(dv * qv, dim=-1) * inv
+    t = torch.sum(e2 * qv, dim=-1) * inv
+    valid = ok & big & (u >= 0) & (v >= 0) & (u + v <= 1)
+    valid = valid & (t > 1e-5) & (t < t_best[:, None])
+    return t, valid, torch.stack([u, v], dim=-1)
+
+
+def _leaf_intersect(verts, tris, prim_idx, leaf_off, o, d, t_best):
+    """Intersect the LEAF_SIZE prims of each lane's leaf (masked),
+    Moller-Trumbore, fetching vertices through the triangle list.
+    Returns (t (N,K), valid (N,K), ids (N,K), uv (N,K,2))."""
+    ids = prim_idx[_leaf_rows(prim_idx, leaf_off)]
+    safe = torch.clamp(ids, min=0).long()
+    tri = tris[safe].long()
+    p0, p1, p2 = (verts[tri[..., k]] for k in range(3))
+    t, valid, uv = _moller_trumbore(p0, p1, p2, o, d, ids >= 0, t_best)
+    return t, valid, safe, uv
+
+
+def _leaf_intersect_soa(bvh, leaf_off, o, d, t_best):
+    """The same test from the packed (T_padded, 9) leaf rows: one row fetch
+    a prim instead of the triangle -> vertex chase."""
+    rows = _leaf_rows(bvh.prim_idx, leaf_off)
+    ids = bvh.prim_idx[rows]
+    soa = bvh.leaf_soa[rows]
+    t, valid, uv = _moller_trumbore(soa[..., 0:3], soa[..., 3:6],
+                                    soa[..., 6:9], o, d, ids >= 0, t_best)
+    return t, valid, torch.clamp(ids, min=0).long(), uv
+
+
+def _inv_dir(d):
+    return 1.0 / torch.where(torch.abs(d) < 1e-20,
+                             torch.where(d < 0, -1e-20, 1e-20), d)
+
+
+def _closest_update(s, t, valid, ids, uv, is_leaf):
+    """Fold one leaf test into a lane's best hit: the first of equal t wins
+    (argmin), and only a strictly nearer t replaces the best."""
+    t_m = torch.where(valid & is_leaf[:, None], t, INFINITY)
+    k = torch.argmin(t_m, dim=-1, keepdim=True)
+    t_new = torch.gather(t_m, 1, k)[:, 0]
+    better = t_new < s["t_best"]
+    s["t_best"] = torch.where(better, t_new, s["t_best"])
+    s["tri"] = torch.where(better, torch.gather(ids, 1, k)[:, 0].to(torch.int32),
+                           s["tri"])
+    s["uv"] = torch.where(better[:, None],
+                          torch.gather(uv, 1, k[..., None].expand(-1, 1, 2))[:, 0],
+                          s["uv"])
+    s["found"] = s["found"] | better
+
+
+SYNC_STEPS = 16  # steps between two checks of which lanes are still walking
+
+
+def _lockstep(state, step, walking, stats=None):
+    """Run step(s, lanes) -> s on the lanes still walking until none is left
+    or MAX_TRAV_STEPS steps have been taken (the JAX loop's cap, exactly).
+    state: dict of (N, ...) tensors, updated in place; lanes: the global
+    lane ids of s's rows.  walking(s) -> (W,) bool.  stats (optional dict)
+    gets steps (the loop's iterations, as the JAX loop counts them: the
+    steps in which some lane was walking), lane_steps, and capped (lanes
+    still walking at the cap)."""
+    n = next(iter(state.values())).shape[0]
+    dev = next(iter(state.values())).device
+    lanes = torch.arange(n, device=dev)
+    lane_steps = torch.zeros((n,), dtype=torch.int32, device=dev)
+    capped, step_no = 0, 0
+    while n > 0 and lanes.numel() and step_no < MAX_TRAV_STEPS:
+        whole = lanes.numel() == n
+        start = dict(state) if whole else {k: v[lanes]
+                                           for k, v in state.items()}
+        s = dict(start)
+        taken = torch.zeros((lanes.numel(),), dtype=torch.int32, device=dev)
+        for _ in range(min(SYNC_STEPS, MAX_TRAV_STEPS - step_no)):
+            if stats is not None:
+                taken += walking(s).to(torch.int32)
+            s = step(s, lanes)
+            step_no += 1
+        for k, v in s.items():
+            if v is start[k]:
+                continue  # the rays' own data: never written
+            if whole:
+                state[k] = v
+            else:
+                state[k][lanes] = v
+        lane_steps[lanes] += taken
+        still = walking(s)
+        if step_no >= MAX_TRAV_STEPS:
+            capped = int(still.sum())
+        lanes = lanes[still]
+    if stats is not None:
+        stats["steps"] = stats.get("steps", 0) + (int(lane_steps.max())
+                                                  if n else 0)
+        stats["lane_steps"] = stats.get("lane_steps", 0) + int(lane_steps.sum())
+        stats["capped"] = stats.get("capped", 0) + capped
+    return state
+
+
+def _trihit(s):
+    uv = s["uv"]
+    b = torch.stack([1.0 - uv[:, 0] - uv[:, 1], uv[:, 0], uv[:, 1]], dim=-1)
+    return TriHit(hit=s["found"],
+                  t=torch.where(s["found"], s["t_best"], INFINITY),
+                  tri=s["tri"], b=b)
+
+
+def _rays(o, d, t_max):
+    o = o.detach().to(torch.float32)
+    d = d.detach().to(torch.float32)
+    n = o.shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    t_max = t_max.detach().expand(n).clone() if t_max.ndim == 0 \
+        else t_max.detach().clone()
+    return {"o": o, "d": d, "inv_d": _inv_dir(d)}, n, t_max
+
+
+def _closest_state(o, d, t_max):
+    s, n, t_max = _rays(o, d, t_max)
+    dev = o.device
+    s.update(t_best=t_max, tri=torch.zeros((n,), dtype=torch.int32, device=dev),
+             uv=torch.zeros((n, 2), dtype=torch.float32, device=dev),
+             found=torch.zeros((n,), dtype=torch.bool, device=dev))
+    return s, n
+
+
+def _node(bvh, node):
+    node = node.long()
+    return (bvh.bounds_lo[node], bvh.bounds_hi[node], bvh.n_prims[node],
+            bvh.offset[node])
+
+
+@torch.no_grad()
+def bvh_closest_hit_stackless(bvh: BVH, o, d, t_max, stats=None):
+    """Threaded (stackless) walk, closest hit: each lane steps to node + 1 on
+    an inner box hit and to miss[node] otherwise (left child first); a leaf
+    runs the LEAF_SIZE-wide masked Moller-Trumbore test from the packed leaf
+    rows.  Returns TriHit with pbrt's barycentrics b = (1-u-v, u, v); t and
+    b carry no gradient, as the kernels' casts do not.  stats: see
+    _lockstep."""
+    s, n = _closest_state(o, d, t_max)
+    s["cursor"] = torch.zeros((n,), dtype=torch.int32, device=o.device)
+
+    def step(s, lanes):
+        active = s["cursor"] >= 0
+        node = torch.clamp(s["cursor"], min=0)
+        lo, hi, np_, off = _node(bvh, node)
+        box = _slab_test(lo, hi, s["o"], s["inv_d"], s["t_best"]) & active
+        is_leaf = (np_ > 0) & box
+        is_inner = (np_ == 0) & box
+        _closest_update(s, *_leaf_intersect_soa(bvh, off, s["o"], s["d"],
+                                                s["t_best"]), is_leaf)
+        nxt = torch.where(is_inner, node + 1, bvh.miss[node.long()])
+        s["cursor"] = torch.where(active, nxt, s["cursor"])
+        return s
+
+    return _trihit(_lockstep(s, step, lambda s: s["cursor"] >= 0, stats))
+
+
+@torch.no_grad()
+def bvh_any_hit_stackless(bvh: BVH, o, d, t_max, stats=None):
+    """Threaded walk, occlusion: (N,) bool, a lane ending at its first hit
+    before t_max."""
+    s, n, t_max = _rays(o, d, t_max)
+    s.update(t_max=t_max,
+             cursor=torch.zeros((n,), dtype=torch.int32, device=o.device),
+             occ=torch.zeros((n,), dtype=torch.bool, device=o.device))
+
+    def step(s, lanes):
+        active = s["cursor"] >= 0
+        node = torch.clamp(s["cursor"], min=0)
+        lo, hi, np_, off = _node(bvh, node)
+        box = _slab_test(lo, hi, s["o"], s["inv_d"], s["t_max"]) & active
+        is_leaf = (np_ > 0) & box
+        is_inner = (np_ == 0) & box
+        _, valid, _, _ = _leaf_intersect_soa(bvh, off, s["o"], s["d"],
+                                             s["t_max"])
+        s["occ"] = s["occ"] | torch.any(valid & is_leaf[:, None], dim=-1)
+        nxt = torch.where(is_inner, node + 1, bvh.miss[node.long()])
+        s["cursor"] = torch.where(active & ~s["occ"], nxt,
+                                  torch.where(active, -1, s["cursor"]))
+        return s
+
+    return _lockstep(s, step, lambda s: s["cursor"] >= 0, stats)["occ"]
+
+
+def _stack_step(bvh, stack, s, lanes, ax, off, node, is_inner, stats):
+    """The stack walk's move: an inner node whose box is hit goes on to the
+    child nearer along the split axis and pushes the farther one (dropped
+    when the lane's MAX_STACK entries are full); any other walking lane pops
+    its stack, and retires when it is empty.  stack: the (N, MAX_STACK)
+    stacks of all lanes, written in place at the pushing lanes' tops."""
+    take_ax = torch.gather(s["dir_neg"], 1, ax.long()[:, None])[:, 0]
+    near = torch.where(take_ax, off, node + 1)
+    far = torch.where(take_ax, node + 1, off)
+    sp = s["sp"]
+    can_push = is_inner & (sp < MAX_STACK)
+    if stats is not None:
+        s["dropped"] = s["dropped"] + (is_inner & ~can_push).to(torch.int32)
+    top = torch.clamp(sp, max=MAX_STACK - 1).long()
+    stack[lanes, top] = torch.where(can_push, far, stack[lanes, top])
+    sp = torch.where(can_push, sp + 1, sp)
+    need_pop = s["active"] & ~is_inner
+    pop = need_pop & (sp > 0)
+    popped = stack[lanes, torch.clamp(sp - 1, min=0).long()]
+    s["cursor"] = torch.where(is_inner, near, torch.where(pop, popped, node))
+    s["sp"] = torch.where(pop, sp - 1, sp)
+    s["active"] = s["active"] & ~(need_pop & (sp == 0))
+
+
+def _stack_state(s, n, dev, stats):
+    s.update(cursor=torch.zeros((n,), dtype=torch.int32, device=dev),
+             sp=torch.zeros((n,), dtype=torch.int32, device=dev),
+             active=torch.ones((n,), dtype=torch.bool, device=dev),
+             dir_neg=s["inv_d"] < 0)
+    if stats is not None:
+        s["dropped"] = torch.zeros((n,), dtype=torch.int32, device=dev)
+    return torch.zeros((n, MAX_STACK), dtype=torch.int32, device=dev)
+
+
+def _stack_stats(s, stats):
+    if stats is not None:
+        stats["dropped_pushes"] = (stats.get("dropped_pushes", 0)
+                                   + int(s["dropped"].sum()))
+
+
+@torch.no_grad()
+def bvh_closest_hit(bvh: BVH, verts, tris, o, d, t_max, stats=None):
+    """Lockstep stack walk, closest hit: near child first by the sign of the
+    ray's direction along the node's split axis, a MAX_STACK-deep stack a
+    lane; leaves tested through the triangle and vertex lists.  Returns
+    TriHit with pbrt's barycentrics b = (1-u-v, u, v); no gradient."""
+    s, n = _closest_state(o, d, t_max)
+    stack = _stack_state(s, n, o.device, stats)
+    verts = verts.detach()
+
+    def step(s, lanes):
+        node = s["cursor"]
+        lo, hi, np_, off = _node(bvh, node)
+        box = _slab_test(lo, hi, s["o"], s["inv_d"], s["t_best"]) & s["active"]
+        is_leaf = (np_ > 0) & box
+        is_inner = (np_ == 0) & box
+        _closest_update(s, *_leaf_intersect(verts, tris, bvh.prim_idx, off,
+                                            s["o"], s["d"], s["t_best"]),
+                        is_leaf)
+        _stack_step(bvh, stack, s, lanes, bvh.axis[node.long()], off, node,
+                    is_inner, stats)
+        return s
+
+    s = _lockstep(s, step, lambda s: s["active"], stats)
+    _stack_stats(s, stats)
+    return _trihit(s)
+
+
+@torch.no_grad()
+def bvh_any_hit(bvh: BVH, verts, tris, o, d, t_max, stats=None):
+    """Lockstep stack walk, occlusion: (N,) bool; a lane retires at its
+    first hit before t_max."""
+    s, n, t_max = _rays(o, d, t_max)
+    s.update(t_max=t_max,
+             occ=torch.zeros((n,), dtype=torch.bool, device=o.device))
+    stack = _stack_state(s, n, o.device, stats)
+    verts = verts.detach()
+
+    def step(s, lanes):
+        node = s["cursor"]
+        lo, hi, np_, off = _node(bvh, node)
+        box = _slab_test(lo, hi, s["o"], s["inv_d"], s["t_max"]) & s["active"]
+        is_leaf = (np_ > 0) & box
+        is_inner = (np_ == 0) & box
+        _, valid, _, _ = _leaf_intersect(verts, tris, bvh.prim_idx, off,
+                                         s["o"], s["d"], s["t_max"])
+        s["occ"] = s["occ"] | torch.any(valid & is_leaf[:, None], dim=-1)
+        _stack_step(bvh, stack, s, lanes, bvh.axis[node.long()], off, node,
+                    is_inner, stats)
+        s["active"] = s["active"] & ~s["occ"]
+        return s
+
+    s = _lockstep(s, step, lambda s: s["active"], stats)
+    _stack_stats(s, stats)
+    return s["occ"]
 
 
 # ---------------------------------------------------------------------------

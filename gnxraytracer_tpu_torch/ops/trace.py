@@ -5,14 +5,15 @@ A hit record is SoA tensors carrying prim ids; the surface interaction
 gathers positions/normals/uv, applies the bump map and builds the shading
 frame.  With cfg.use_bvh the triangle casts walk the scene's width-8 BVH
 table (kernels/wide_bvh.py) or its binary threaded one
-(kernels/packet_bvh.py); the per-lane stack walks of the JAX package are not
-ported yet and raise.  The brute-force casts (every triangle of a scene
-without a BVH, the big triangles kept out of one) go through the two kernels
-of kernels/closest_hit.py, closest and any hit, where the configuration asks
-for kernels.  Instanced copies of a base mesh (cfg.n_inst > 0) are cast in
-each instance's object space (ops/instancing.py): through the binary
-threaded-BVH kernels when the base mesh has a tree, else through the
-brute-force ones, where the configuration asks for kernels.
+(kernels/packet_bvh.py), or take the per-lane walks of ops/bvh.py
+(bvh_mode "stack" / "stackless").  The brute-force casts (every triangle of
+a scene without a BVH, the big triangles kept out of one) go through the two
+kernels of kernels/closest_hit.py, closest and any hit, where the
+configuration asks for kernels.  Instanced copies of a base mesh
+(cfg.n_inst > 0) are cast in each instance's object space
+(ops/instancing.py): through the binary threaded-BVH kernels when the base
+mesh has a tree, else through the brute-force ones, where the configuration
+asks for kernels.
 The JAX package fetches per-triangle attributes with a one-hot matmul (a
 TPU device); plain index gathers give the same values here.
 """
@@ -24,7 +25,7 @@ import torch
 from ..constants import INFINITY, PI, gamma
 from ..utils.math import coordinate_system, cross, dot, face_forward, normalize
 from ..utils.transform import mat_vec
-from . import intersect
+from . import bvh, intersect
 
 PRIM_NONE = -1
 PRIM_TRI = 0
@@ -100,19 +101,27 @@ def _bvh_casts(scene, cfg):
     """(closest, any) cast functions (o, d, t_max) -> result over the scene's
     BVH for cfg.bvh_mode: "pallas" is the hand-written kernels' wrappers
     (kernel on CUDA tensors, plain version on CPU tensors), "packet" the
-    plain walks on any device.  Which tree they walk follows the JAX
-    package's rule (kernels/packet_bvh._use_wide): the width-8 table, or with
-    GNX_WIDE_BVH=0 in the environment the binary threaded one."""
+    plain walks of those kernels on any device.  Which tree they walk
+    follows the JAX package's rule (kernels/packet_bvh._use_wide): the
+    width-8 table, or with GNX_WIDE_BVH=0 in the environment the binary
+    threaded one.  "stackless" and "stack" (or cfg.bvh_stackless=False) are
+    the per-lane walks of ops/bvh.py over the binary tree, plain PyTorch on
+    any device: the threaded walk from the packed leaf rows, and the stack
+    walk through the scene's vertex and triangle lists."""
     from ..kernels import packet_bvh, wide_bvh
 
     if scene.bvh is None:
         raise ValueError("cfg.use_bvh needs a scene built with bvh=True")
 
     mode = _bvh_mode(cfg)
-    if mode in ("stack", "stackless"):
-        raise NotImplementedError(
-            f"the per-lane BVH walk (bvh_mode={mode!r}) is not ported yet; "
-            "use bvh_mode='pallas' or 'packet'")
+    tree = scene.bvh
+    if mode == "stackless":
+        return (lambda o, d, t: bvh.bvh_closest_hit_stackless(tree, o, d, t),
+                lambda o, d, t: bvh.bvh_any_hit_stackless(tree, o, d, t))
+    if mode == "stack":
+        v, tris = scene.geom.vertices, scene.geom.triangles
+        return (lambda o, d, t: bvh.bvh_closest_hit(tree, v, tris, o, d, t),
+                lambda o, d, t: bvh.bvh_any_hit(tree, v, tris, o, d, t))
     if mode not in ("pallas", "packet"):
         raise ValueError(f"unknown bvh_mode {mode!r}")
     if packet_bvh._use_wide(scene.bvh):

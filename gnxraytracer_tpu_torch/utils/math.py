@@ -69,6 +69,13 @@ def spherical_direction(sin_theta, cos_theta, phi):
         dim=-1)
 
 
+def spherical_direction_basis(sin_theta, cos_theta, phi, x, y, z):
+    """The direction (sin_theta, phi, cos_theta) in the frame x, y, z."""
+    return ((sin_theta * torch.cos(phi))[..., None] * x
+            + (sin_theta * torch.sin(phi))[..., None] * y
+            + cos_theta[..., None] * z)
+
+
 def spherical_theta(v):
     return torch.acos(torch.clamp(v[..., 2], -1.0, 1.0))
 

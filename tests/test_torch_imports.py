@@ -1,7 +1,7 @@
 """The port stands alone: importing it pulls in neither jax nor the JAX
 package; its entry points refuse to run without a CUDA device unless the
-caller names the CPU; and every branch that is not ported yet (the per-lane
-BVH walks) raises NotImplementedError rather than doing something else."""
+caller names the CPU; and every branch that an earlier part of the port
+refused (the last were the per-lane BVH walks) now runs."""
 
 import ast
 import os
@@ -62,7 +62,8 @@ def test_every_module_is_found():
                  "parallel.sharding", "scene.presets", "scene.loaders",
                  "utils.image", "utils.transform", "ops.instancing",
                  "ops.lbvh", "bench", "utils.stats", "utils.viewer",
-                 "parallel.multihost", "utils.device"):
+                 "parallel.multihost", "utils.device", "ops.interpolation",
+                 "models.bssrdf", "ops.procedural", "models.sphere_sampling"):
         assert f"gnxraytracer_tpu_torch.{want}" in mods
 
 
@@ -452,24 +453,15 @@ def _render(scene=None, cam=None, **kw):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fast_mis=True, use_bvh=True, bvh_mode="stack"),
-    dict(fast_mis=True, use_bvh=True, bvh_stackless=False),
-], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
-def test_unported_render_branch_raises(kw):
-    scene = cam = None
-    if kw.get("use_bvh"):
-        scene, cam = T_presets.cornell_box(16, 16, bvh=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        _render(scene, cam, **kw)
-
-
-@pytest.mark.parametrize("kw", [
     dict(fast_mis=True, pipeline_casts=True, compact_tail=True,
          compact_stages=((0, 1),)),
     dict(fast_mis=True, use_bvh=True),
     dict(fast_mis=True, use_bvh=True, bvh_mode="pallas"),
     dict(fast_mis=False),
     dict(fast_mis=False, use_bvh=True),
+    # the per-lane walks, refused until the last slice of the port
+    dict(fast_mis=True, use_bvh=True, bvh_mode="stack"),
+    dict(fast_mis=True, use_bvh=True, bvh_stackless=False),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_ported_render_branch_runs(kw):
     """Branches that were refused in an earlier part of the port and render
@@ -521,12 +513,26 @@ def test_unported_trace_branches_raise():
             cast(scene, cfg._replace(n_inst=1, n_inst_tris=12), o, d, t)
         with pytest.raises(ValueError, match="bvh=True"):
             cast(scene, cfg._replace(use_bvh=True), o, d, t)
-    # what the casts still refuse: the per-lane walks
+    # the per-lane walks (refused until the last slice of the port) cast,
+    # with the hits of the plain walk of the kernels on the same tree
     bscene, _ = T_presets.cornell_box(8, 8, bvh=True, device="cpu")
+    d = torch.tensor([[0.1, -0.2, -1.0], [0.0, 1.0, 0.0], [-1.0, 0.3, 0.1],
+                      [0.2, 0.1, 1.0]])
+    bcfg = cfg._replace(use_bvh=True, bvh_mode="packet")
+    want = T_trace.scene_intersect(bscene, bcfg, o, d, t * 100)
+    want_occ = T_trace.scene_occluded(bscene, bcfg, o, d, t * 100)
+    # the box's walls, floor and ceiling; it is open toward the camera (+z)
+    assert want.hit.tolist() == [True, True, True, False]
     for mode in ("stack", "stackless"):
-        with pytest.raises(NotImplementedError):
-            T_trace.scene_intersect(bscene, cfg._replace(
-                use_bvh=True, bvh_mode=mode), o, d, t)
+        mcfg = bcfg._replace(bvh_mode=mode)
+        got = T_trace.scene_intersect(bscene, mcfg, o, d, t * 100)
+        for f in ("hit", "kind", "prim"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (mode, f)
+        torch.testing.assert_close(got.t, want.t, rtol=1e-5, atol=0)
+        assert torch.equal(T_trace.scene_occluded(bscene, mcfg, o, d, t * 100),
+                           want_occ)
+    with pytest.raises(ValueError, match="unknown bvh_mode"):
+        T_trace.scene_intersect(bscene, bcfg._replace(bvh_mode="walk"), o, d, t)
     # the spatial strategy without a grid is the power strategy (as in the
     # JAX package)
     u = torch.linspace(0, 0.99, 4)

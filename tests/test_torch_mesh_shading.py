@@ -622,7 +622,8 @@ def test_scene_occluded_through_bvh_and_big_prims(big):
 
 def test_bvh_modes():
     """'pallas' names the kernels' wrappers (plain walk on CPU tensors),
-    'packet' the plain walk; the per-lane stack walks are not ported."""
+    'packet' the plain walk; 'stack' (or bvh_stackless=False) and
+    'stackless' the per-lane walks, which find the same hits."""
     _, _, ts, _ = mesh_pair(8, 8)
     cfg = T_path.make_config(ts, 8, 8, spp=1)
     assert cfg.use_bvh and cfg.bvh_mode == "packet"
@@ -634,13 +635,15 @@ def test_bvh_modes():
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert bool(a.hit.all())
-    for bad in (cfg._replace(bvh_mode="stack"),
-                cfg._replace(bvh_mode="stackless"),
-                cfg._replace(bvh_stackless=False)):
-        with pytest.raises(NotImplementedError):
-            T_trace.scene_intersect(ts, bad, o, d, t)
-        with pytest.raises(NotImplementedError):
-            T_trace.scene_occluded(ts, bad, o, d, t)
+    occ = T_trace.scene_occluded(ts, cfg, o, d, t)
+    for per_lane in (cfg._replace(bvh_mode="stack"),
+                     cfg._replace(bvh_mode="stackless"),
+                     cfg._replace(bvh_stackless=False)):
+        c = T_trace.scene_intersect(ts, per_lane, o, d, t)
+        for f in ("hit", "kind", "prim"):
+            assert torch.equal(getattr(c, f), getattr(a, f))
+        torch.testing.assert_close(c.t, a.t, rtol=1e-5, atol=0)
+        assert torch.equal(T_trace.scene_occluded(ts, per_lane, o, d, t), occ)
     with pytest.raises(ValueError):
         T_trace.scene_intersect(ts, cfg._replace(bvh_mode="nope"), o, d, t)
 
