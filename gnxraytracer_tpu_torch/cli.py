@@ -26,11 +26,16 @@ Usage:
   python -m gnxraytracer_tpu_torch.cli render --preset cornell --spp 64 \\
       --live live.png --view      # rewrite live.png and redraw an ANSI
                                   # preview in the terminal after each chunk
+  python -m gnxraytracer_tpu_torch.cli render --preset cornell --spp 16 \\
+      --trace tr    # tr/trace.json: the profiler trace with the program's
+                    # spans; tr/spans.json: host self time a span and the
+                    # counters
   python -m gnxraytracer_tpu_torch.cli presets
 """
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -87,6 +92,19 @@ def get_integrator(name):
 
 
 def cmd_render(args):
+    if not args.trace:
+        return _render(args)
+    from .utils import stats
+
+    with stats.recording() as rec, stats.profiler_trace(args.trace):
+        _render(args)
+    spans = os.path.join(args.trace, "spans.json")
+    with open(spans, "w") as f:
+        json.dump(rec.summary(), f, indent=1)
+    print(f"wrote {os.path.join(args.trace, 'trace.json')} and {spans}")
+
+
+def _render(args):
     import torch
 
     from .models.integrators import path as path_mod
@@ -213,6 +231,9 @@ def main(argv=None):
     r.add_argument("--checkpoint", default=None)
     r.add_argument("--resume", action="store_true")
     r.add_argument("--cpu", action="store_true", help="run on the CPU")
+    r.add_argument("--trace", default=None, metavar="DIR",
+                   help="record the program's spans and counters and "
+                        "profile the render: DIR/trace.json, DIR/spans.json")
     r.set_defaults(fn=cmd_render)
 
     q = sub.add_parser("presets", help="list scene presets")

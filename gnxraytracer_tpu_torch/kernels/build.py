@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import time
 
+from ..utils.stats import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -101,6 +103,7 @@ def load(name):
     """ctypes handle of csrc/<name>.cu's library, building it if needed."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(finish_build(start_build(name)))
+        with span("kernels.load"):
+            lib = ctypes.CDLL(finish_build(start_build(name)))
         _libs[name] = lib
     return lib

@@ -40,6 +40,7 @@ from ...ops import samplers, trace
 from ...ops.sampling import power_heuristic
 from ...scene import camera as cam_mod
 from ...utils.math import absdot, cross, dot, normalize
+from ...utils.stats import count, span, spanned
 from .. import lights as lights_mod
 from .. import materials as mat_mod
 
@@ -333,10 +334,14 @@ def _make_faithful_bounce(scene, cfg: RenderCfg, get_ub, n, rd=None):
     are carried but unused here."""
 
     def bounce(b, state):
-        ub = get_ub(b)
         # dead lanes cast with t_max = 0 and can hit nothing
         hit = trace.scene_intersect(scene, cfg, state["o"], state["d"],
                                     torch.where(state["alive"], INFINITY, 0.0))
+        with span("shade"):
+            return shade(b, state, hit)
+
+    def shade(b, state, hit):
+        ub = get_ub(b)
         it = trace.make_interaction(scene, cfg, state["o"], state["d"], hit)
 
         L = state["L"]
@@ -356,6 +361,7 @@ def _make_faithful_bounce(scene, cfg: RenderCfg, get_ub, n, rd=None):
             L = L + torch.where(esc[..., None], state["beta"] * le_inf, 0.0)
 
         alive = state["alive"] & hit.hit & (b < cfg.max_depth)
+        _count_lanes(alive)
 
         # NEE (skipped for perfectly specular BSDFs)
         wo_local = trace.to_local(it, it.wo)
@@ -451,6 +457,13 @@ def _count(mask):
     return torch.sum(mask.to(torch.float32))
 
 
+def _count_lanes(alive):
+    """The recorder's lane counters at a bounce's shading: the wavefront's
+    width and its lanes that go on (alive, hit, below max_depth)."""
+    count("lanes.dispatched", alive.shape[0])
+    count("lanes.alive", alive)
+
+
 def _fast_parts(scene, cfg: RenderCfg, get_ub, n, rd=None):
     """The fast-MIS bounce body split into its three phases:
 
@@ -468,6 +481,7 @@ def _fast_parts(scene, cfg: RenderCfg, get_ub, n, rd=None):
             scene, cfg, state["o"], state["d"],
             torch.where(state["alive"], INFINITY, 0.0))
 
+    @spanned("emit")
     def emit(b, state, hit, it=None):
         """Emission/escape contribution of the vertex `hit` (MIS-weighted
         against the previous bounce's BSDF pdf)."""
@@ -529,6 +543,7 @@ def _fast_parts(scene, cfg: RenderCfg, get_ub, n, rd=None):
                                 state["beta"] * le_inf * w[..., None], 0.0)
         return L
 
+    @spanned("shade")
     def work(b, state, hit, it=None, count_cast=True):
         if it is None:
             it = trace.make_interaction(scene, cfg, state["o"], state["d"],
@@ -536,6 +551,7 @@ def _fast_parts(scene, cfg: RenderCfg, get_ub, n, rd=None):
         ub = get_ub(b)
         L = state["L"]
         alive = state["alive"] & hit.hit & (b < cfg.max_depth)
+        _count_lanes(alive)
 
         # ---- NEE: light-sample strategy only -------------------------------
         wo_local = trace.to_local(it, it.wo)
@@ -625,7 +641,9 @@ def _make_fast_bounce(scene, cfg: RenderCfg, get_ub, n, rd=None):
 
     def bounce(b, state):
         hit = cast(state)
-        it = trace.make_interaction(scene, cfg, state["o"], state["d"], hit)
+        with span("shade"):
+            it = trace.make_interaction(scene, cfg, state["o"], state["d"],
+                                        hit)
         state = dict(state, L=state["L"] + emit(b, state, hit, it=it))
         return work(b, state, hit, it=it)
 
@@ -708,6 +726,7 @@ def recording_prethin():
         _prethin_log = outer
 
 
+@spanned("compact")
 def _compact(cfg, state, survivors, m, u_thin):
     """Pre-thin (RR, unbiased) the `survivors` of a wavefront and compact
     them into a fixed m-slot buffer.  Returns (state at width m, src, valid):
@@ -744,6 +763,7 @@ def _compact(cfg, state, survivors, m, u_thin):
     return new_state, src, valid
 
 
+@spanned("compact")
 def _scatter_back(L, outer):
     """Add the partial radiances of the compacted stages back through the
     composed source maps; outer: [(L_at_this_width, src, valid), ...]."""
@@ -941,6 +961,7 @@ def _trace_loop_pipelined(scene, cfg: RenderCfg, sampler, pixel, sample,
 # Render loop
 # ---------------------------------------------------------------------------
 
+@spanned("pass")
 def render_chunk(scene, camera, sampler, cfg: RenderCfg, sample_start, n_samples):
     """Render n_samples spp for every pixel on the scene's device; returns
     the (H*W, 3) radiance sum, or (sum, n_rays) when cfg.count_rays."""
@@ -950,16 +971,17 @@ def render_chunk(scene, camera, sampler, cfg: RenderCfg, sample_start, n_samples
     sample = torch.repeat_interleave(
         int(sample_start) + torch.arange(n_samples, dtype=torch.int32,
                                          device=dev), hw)
-    p_film, time_u, p_lens = samplers.camera_sample(
-        sampler, pixel, sample, cfg.width, cfg.pixel_filter,
-        cfg.filter_radius, cfg.filter_alpha)
-    rd = None
-    if cfg.has_textures and cfg.texture_filter != "bilinear":
-        o, d, _t, rd = cam_mod.generate_ray_differentials(
-            camera, p_film, time_u, p_lens)
-        rd = cam_mod.scale_differentials(o, d, rd, 1.0 / (cfg.spp ** 0.5))
-    else:
-        o, d, _t = cam_mod.generate_rays(camera, p_film, time_u, p_lens)
+    with span("camera"):
+        p_film, time_u, p_lens = samplers.camera_sample(
+            sampler, pixel, sample, cfg.width, cfg.pixel_filter,
+            cfg.filter_radius, cfg.filter_alpha)
+        rd = None
+        if cfg.has_textures and cfg.texture_filter != "bilinear":
+            o, d, _t, rd = cam_mod.generate_ray_differentials(
+                camera, p_film, time_u, p_lens)
+            rd = cam_mod.scale_differentials(o, d, rd, 1.0 / (cfg.spp ** 0.5))
+        else:
+            o, d, _t = cam_mod.generate_rays(camera, p_film, time_u, p_lens)
     tracer = trace_paths_fast if cfg.fast_mis else trace_paths
     out = tracer(scene, cfg, sampler, pixel, sample, o, d, rd=rd)
     L, nrays = out if cfg.count_rays else (out, None)

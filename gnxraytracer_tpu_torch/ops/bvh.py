@@ -25,6 +25,7 @@ import torch
 
 from ..constants import INFINITY
 from ..utils.device import resolve_device
+from ..utils.stats import spanned
 from .intersect import TriHit
 
 LEAF_SIZE = 4
@@ -167,6 +168,7 @@ def _align_leaves(off, npr, order, leaf_size=LEAF_SIZE):
     return new_off.astype(np.int32), new_order.astype(np.int32)
 
 
+@spanned("build.packet_pack")
 def build_packet_pack(lo, hi, off, npr, order, soa, miss, first8=None,
                       miss8=None, device="cuda"):
     """PacketPack of a finished binary tree (host arrays): table for table
@@ -235,6 +237,7 @@ def _finish_build(arrs, vertices, triangles, orig_ids=None, device="cuda"):
                           miss8, device=device)
 
 
+@spanned("build.bvh")
 def build_bvh(vertices, triangles, leaf_size=LEAF_SIZE, subset=None,
               builder=None, device="cuda"):
     """SAH BVH over triangles; returns the BVH tables on `device`.

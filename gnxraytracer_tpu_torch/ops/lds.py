@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..constants import ONE_MINUS_EPSILON
+from ..utils.stats import spanned
 from .rng import MASK32, as_u32
 
 K_MAX_RESOLUTION = 128
@@ -100,6 +101,7 @@ def permutations_python(p):
 
 
 @functools.lru_cache(maxsize=1)
+@spanned("sampler.tables")
 def radical_inverse_permutations():
     """Flat per-prime digit permutation table of the first 1000 primes.
 

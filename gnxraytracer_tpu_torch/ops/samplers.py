@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.stats import span, spanned
 from . import lds, rng
 from . import sobol as _sobol
 
@@ -75,6 +76,7 @@ def halton_sampler_from_tables(spp, seed, pixel_offset, stride, exp2, scale3,
         device=str(dev))
 
 
+@spanned("sampler.tables")
 def make_halton_sampler(spp, width, height, seed=0, device="cuda"):
     resolve_device(device)  # refuse a missing device before building tables
     offsets, meta = lds.halton_pixel_offsets(width, height)
@@ -131,11 +133,16 @@ def sample_2d(s: Sampler, pixel, sample, dim: int):
         dim=-1)
 
 
+@spanned("sampler")
 def sample_bounce_dims(s: Sampler, pixel, sample, base: int, k: int,
                        max_dims: int):
     """k consecutive dims starting at `base` for every lane, as (N, k).
     Same values as sample_all_dims(...)[:, base:base+k], without the
     (N, D) matrix in device memory."""
+    return _bounce_dims(s, pixel, sample, base, k, max_dims)
+
+
+def _bounce_dims(s, pixel, sample, base, k, max_dims):
     base = int(base)
     if base + k > max_dims:
         raise ValueError(f"dims {base}..{base + k} exceed max_dims={max_dims}")
@@ -149,12 +156,13 @@ def sample_bounce_dims(s: Sampler, pixel, sample, base: int, k: int,
     raise ValueError(f"in-loop dims unsupported for sampler kind {s.kind!r}")
 
 
+@spanned("sampler")
 def sample_all_dims(s: Sampler, pixel, sample, n_dims: int):
     """ALL dimensions for a wavefront as one (N, n_dims) tensor.  Every
     Halton column has a static dim, so it runs a static-base digit loop
     (4-18 steps) over a tiny permutation slice."""
     if s.kind in ("random", "sobol"):
-        return sample_bounce_dims(s, pixel, sample, 0, n_dims, n_dims)
+        return _bounce_dims(s, pixel, sample, 0, n_dims, n_dims)
     col = static_dim_fn(s, pixel, sample)
     return torch.stack([col(d) for d in range(n_dims)], dim=-1)
 
@@ -201,11 +209,12 @@ def camera_sample(s: Sampler, pixel, sample, width, pixel_filter="box",
     Returns (p_film (N,2) raster coords, time (N,), p_lens (N,2))."""
     px = (pixel % width).to(torch.float32)
     py = torch.div(pixel, width, rounding_mode="floor").to(torch.float32)
-    if supports_inloop_dims(s):
-        u = sample_bounce_dims(s, pixel, sample, 0, 5, 5)
-    else:
-        col = static_dim_fn(s, pixel, sample)
-        u = torch.stack([col(d) for d in range(5)], dim=-1)
+    with span("sampler"):
+        if supports_inloop_dims(s):
+            u = _bounce_dims(s, pixel, sample, 0, 5, 5)
+        else:
+            col = static_dim_fn(s, pixel, sample)
+            u = torch.stack([col(d) for d in range(5)], dim=-1)
     jitter = u[:, 0:2]
     if pixel_filter == "gaussian":
         sigma = 1.0 / (2.0 * filter_alpha) ** 0.5

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..constants import ONE_MINUS_EPSILON
+from ..utils.stats import spanned
 from .lds import PCG32, reverse_bits_32
 from .rng import MASK32, mul32
 
@@ -126,6 +127,7 @@ def build_matrices(n_dims):
 
 
 @functools.lru_cache(maxsize=1)
+@spanned("sampler.tables")
 def sobol_matrices(n_dims=N_DIMS):
     """(n_dims, 32) uint32 generator matrices, cached on disk under
     ``.cache/`` beside the package after the first build."""

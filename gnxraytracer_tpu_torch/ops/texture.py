@@ -14,6 +14,8 @@ taps with the same weights here.
 import numpy as np
 import torch
 
+from ..utils.stats import spanned
+
 
 def _resize_pow2(img, size):
     """Point resample to (size, size) (sufficient for minification)."""
@@ -23,6 +25,7 @@ def _resize_pow2(img, size):
     return img[ys][:, xs]
 
 
+@spanned("build.textures")
 def build_texture_atlas(images, base_size=256, device="cpu"):
     """Stack images into a mip atlas.
 

@@ -24,6 +24,7 @@ import torch
 
 from ..constants import INFINITY, PI, gamma
 from ..utils.math import coordinate_system, cross, dot, face_forward, normalize
+from ..utils.stats import spanned
 from ..utils.transform import mat_vec
 from . import bvh, intersect
 
@@ -151,6 +152,7 @@ def _merge_tri_hit(th, prim_of, t_best, hit, kind, prim, bary):
             torch.where(better[..., None], th.b, bary))
 
 
+@spanned("cast")
 def scene_intersect(scene, cfg, o, d, t_max):
     """Closest hit across triangles, spheres and instances.  With
     cfg.use_bvh the triangle cast walks the BVH (a few huge triangles kept
@@ -205,6 +207,7 @@ def scene_intersect(scene, cfg, o, d, t_max):
     return Hit(hit, torch.where(hit, t_best, INFINITY), kind, prim, bary)
 
 
+@spanned("cast")
 def scene_occluded(scene, cfg, o, d, t_max):
     """Any-hit (shadow ray).  With cfg.use_bvh the triangle cast walks the
     BVH; lanes that a big triangle already occludes skip the walk

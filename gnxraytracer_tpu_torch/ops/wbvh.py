@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.stats import spanned
 from .bvh import LEAF_SIZE
 
 WIDTH = 8          # node width (slots)
@@ -333,6 +334,7 @@ def unpack_wide(rec, frame):
     return box[:, 0], box[:, 1], targ, perms
 
 
+@spanned("build.wide_pack")
 def build_wide_pack(off, npr, axis, lo, hi, prim_idx, leaf_soa, device="cpu"):
     """The whole binary tree as one width-8 table on `device`.  width is 8
     and leaves are LEAF_SIZE rows."""

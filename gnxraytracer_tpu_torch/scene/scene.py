@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.stats import span, spanned
 
 # Material kinds (models/materials.py implements their lobe assemblies)
 MAT_MATTE = 0
@@ -418,6 +419,7 @@ class SceneBuilder:
 
     # -- freeze --------------------------------------------------------------
 
+    @spanned("build")
     def build(self, bvh=False, device="cuda"):
         """Freeze into a Scene on `device`.  bvh: False (brute-force casts),
         True or "sah" (host SAH build, ops/bvh.build_bvh, with big-prim
@@ -523,30 +525,31 @@ class SceneBuilder:
         center = (lo + hi) / 2
         radius = float(np.linalg.norm(hi - center))
 
-        env = None
-        if self.env is not None:
-            from ..ops.sampling import make_distribution2d
+        with span("build.lights"):  # the environment light's distribution
+            env = None
+            if self.env is not None:
+                from ..ops.sampling import make_distribution2d
 
-            img, l2w = self.env
-            if l2w is None:
-                l2w = np.eye(4, dtype=np.float32)
-            h, w = img.shape[:2]
-            # luminance * sin(theta) importance image
-            lum = img @ np.asarray([0.212671, 0.715160, 0.072169], np.float32)
-            sin_theta = np.sin(np.pi * (np.arange(h) + 0.5) / h).astype(np.float32)
-            d2 = make_distribution2d(put(lum * sin_theta[:, None]))
-            lf = torch.cat(
-                [put(img), (d2.cond_func / torch.clamp(d2.marg_int, min=1e-20)
-                            )[..., None]], dim=-1)
-            env = EnvMap(
-                image=put(img),
-                cond_func=d2.cond_func, cond_cdf=d2.cond_cdf,
-                cond_int=d2.cond_int, marg_cdf=d2.marg_cdf,
-                marg_int=d2.marg_int,
-                world_to_light=put(np.linalg.inv(l2w).astype(np.float32)),
-                light_to_world=put(np.asarray(l2w, np.float32)),
-                le_func=lf,
-            )
+                img, l2w = self.env
+                if l2w is None:
+                    l2w = np.eye(4, dtype=np.float32)
+                h, w = img.shape[:2]
+                # luminance * sin(theta) importance image
+                lum = img @ np.asarray([0.212671, 0.715160, 0.072169], np.float32)
+                sin_theta = np.sin(np.pi * (np.arange(h) + 0.5) / h).astype(np.float32)
+                d2 = make_distribution2d(put(lum * sin_theta[:, None]))
+                lf = torch.cat(
+                    [put(img), (d2.cond_func / torch.clamp(d2.marg_int, min=1e-20)
+                                )[..., None]], dim=-1)
+                env = EnvMap(
+                    image=put(img),
+                    cond_func=d2.cond_func, cond_cdf=d2.cond_cdf,
+                    cond_int=d2.cond_int, marg_cdf=d2.marg_cdf,
+                    marg_int=d2.marg_int,
+                    world_to_light=put(np.linalg.inv(l2w).astype(np.float32)),
+                    light_to_world=put(np.asarray(l2w, np.float32)),
+                    le_func=lf,
+                )
 
         textures = None
         if self.textures:
@@ -609,4 +612,5 @@ class SceneBuilder:
             big_tri_idx=(None if big_idx is None
                          else put(big_idx.astype(np.int32))),
         )
-        return with_light_pmf(scene)
+        with span("build.lights"):
+            return with_light_pmf(scene)

@@ -366,11 +366,13 @@ def _render_flags(cli_module, monkeypatch):
 
 
 def test_cli_flags_and_defaults_are_the_jax_clis(monkeypatch):
-    """Same render flags, defaults and choices as the JAX CLI."""
+    """Same render flags, defaults and choices as the JAX CLI, besides the
+    port's own --trace DIR (the program's spans and a profiler trace)."""
     from gnxraytracer_tpu import cli as jax_cli
 
     ours = _render_flags(cli, monkeypatch)
     theirs = _render_flags(jax_cli, monkeypatch)
+    assert ours.pop("--trace") == (None, None, None)
     assert ours == theirs
     assert "--cpu" in ours and "--fast-mis" in ours
     assert theirs["--sampler"][0] == "halton" and theirs["--width"][0] == 500
