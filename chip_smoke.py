@@ -65,7 +65,13 @@ the CPU or to a plain version:
               one pass against four (64x64); AD against central FD through
               the kernels; the reference renderer's gradient goldens
               ref_grad_{kd,le,sigma} and ref_grad_disney_rough; an
-              optimisation that must cut the loss by 30% in 3 steps
+              optimisation that must cut the loss by 30% in 3 steps; the
+              table-gather backward kernel (csrc/table_grad.cu) against
+              PyTorch's index-put on the Cornell step's own gathers and on
+              synthetic sets, bit-equal, with its device ms beside the
+              library's, the Cornell step's gradients through the kernel
+              against those through PyTorch's backward (bit-equal), and the
+              table_grad.* counters of one recorded step
  11. volpath  volpath.render of presets.cornell_homogeneous (a homogeneous
               medium in a null-material box) at 500x500, depth 8, Halton,
               1M lanes a chunk, through kernel 1; the reference renderer's
@@ -1184,9 +1190,12 @@ def count_plain_calls(ch):
 
 
 def reset_counts(ch, wb, pk):
+    from gnxraytracer_tpu_torch.kernels import table_grad as tg
+
     ch.reset_launch_count()
     wb.reset_launch_counts()
     pk.reset_launch_counts()
+    tg.reset_launch_count()
     for calls in (PLAIN_CALLS, PLAIN_WALK_CALLS):
         for name in calls:
             calls[name] = 0
@@ -1555,12 +1564,15 @@ def all_counts(ch, wb, pk):
 
 def kernel_counts(ch, wb, pk):
     """Every kernel's launches since the last reset_counts."""
+    from gnxraytracer_tpu_torch.kernels import table_grad as tg
+
     return {"closest_hit": ch.launch_count,
             "brute_any_hit": ch.any_launch_count,
             "wide_closest_hit": wb.closest_launch_count,
             "wide_any_hit": wb.any_launch_count,
             "packet_closest_hit": pk.closest_launch_count,
-            "packet_any_hit": pk.any_launch_count}
+            "packet_any_hit": pk.any_launch_count,
+            "table_grad": tg.launch_count}
 
 
 def camera_hits(scene, cam, cfg, smp):
@@ -2098,21 +2110,31 @@ def check_step(label, params, new, stats, want_moved):
     return moved
 
 
-def expected_step_launches(cfg, passes, steps, bvh):
+# a Cornell bounce's gathers of the kd and light_emit tables, whose
+# backward is csrc/table_grad.cu: the material row, the emitted radiance at
+# the hit, the sampled light's row and the light pmf (ops/table.py)
+CORNELL_TABLE_GATHERS = 4
+
+
+def expected_step_launches(cfg, passes, steps, bvh, table_grad=0):
     """Launches a train step makes: each bounce of the faithful estimator
     (max_depth + 1 of them, every lane cast, dead ones with t_max = 0) casts
     the closest hit, the light sample's shadow ray and the BSDF sample's
-    re-intersection.  Through a BVH every cast brute-forces the big
-    triangles kept out of the tree first."""
+    re-intersection, and differentiates `table_grad` gathers of parameter
+    tables.  Through a BVH every cast brute-forces the big triangles kept
+    out of the tree first."""
     closest = 2 * (cfg.max_depth + 1) * passes * steps
     shadow = (cfg.max_depth + 1) * passes * steps
+    tables = table_grad * (cfg.max_depth + 1) * passes * steps
     if bvh:
         return {"closest_hit": closest, "brute_any_hit": shadow,
                 "wide_closest_hit": closest, "wide_any_hit": shadow,
-                "packet_closest_hit": 0, "packet_any_hit": 0}
+                "packet_closest_hit": 0, "packet_any_hit": 0,
+                "table_grad": tables}
     return {"closest_hit": closest, "brute_any_hit": shadow,
             "wide_closest_hit": 0, "wide_any_hit": 0,
-            "packet_closest_hit": 0, "packet_any_hit": 0}
+            "packet_closest_hit": 0, "packet_any_hit": 0,
+            "table_grad": tables}
 
 
 def oracle_fd(name):
@@ -2196,6 +2218,7 @@ def phase_gradients(dev, ch, wb, pk, mesh):
     from gnxraytracer_tpu_torch.ops import samplers
     from gnxraytracer_tpu_torch.parallel import sharding
     from gnxraytracer_tpu_torch.scene import presets
+    from gnxraytracer_tpu_torch.utils import stats as stats_mod
 
     total_bytes = torch.cuda.get_device_properties(dev).total_memory
 
@@ -2218,7 +2241,8 @@ def phase_gradients(dev, ch, wb, pk, mesh):
         step, params, scene, cam, smp, target, lr=1.0)
     check_no_plain_brute("phase 10 cornell train step")
     counts = all_counts(ch, wb, pk)
-    want = expected_step_launches(cfg, stats["passes"], GRAD_STEPS + 1, False)
+    want = expected_step_launches(cfg, stats["passes"], GRAD_STEPS + 1, False,
+                                  CORNELL_TABLE_GATHERS)
     check(counts == want, f"cornell train step: launches {counts}, "
           f"expected {want}")
     check(bool(torch.isfinite(loss)), f"cornell train step: loss {loss}")
@@ -2227,6 +2251,7 @@ def phase_gradients(dev, ch, wb, pk, mesh):
     check(peak < total_bytes, "cornell train step: peak over the card")
     emit(step_record("train step, cornell (kd, light_emit)", cfg, loss, stats,
                      fwd, bwd, tot, peak, counts, moved))
+    table_launches = counts["table_grad"]
     del target, new, stats, step
     torch.cuda.empty_cache()
 
@@ -2249,11 +2274,16 @@ def phase_gradients(dev, ch, wb, pk, mesh):
     mstep = sharding.make_train_step(mcfg)
     budget = sharding.default_lane_budget(mcfg, dev)
     reset_counts(ch, wb, pk)
-    loss, new, stats, fwd, bwd, tot, peak = timed_steps(
-        mstep, mparams, mscene, mcam, msmp, mtarget, lr=1.0)
+    # the gathers whose backward took the kernel, as the route counts them
+    with stats_mod.recording() as recorded:
+        loss, new, stats, fwd, bwd, tot, peak = timed_steps(
+            mstep, mparams, mscene, mcam, msmp, mtarget, lr=1.0)
     check_no_plain_brute("phase 10 mesh train step")
     counts = all_counts(ch, wb, pk)
-    want = expected_step_launches(mcfg, stats["passes"], GRAD_STEPS + 1, True)
+    want = expected_step_launches(mcfg, stats["passes"], GRAD_STEPS + 1, True,
+                                  0)
+    want["table_grad"] = recorded.counters.get("table_grad.kernel", 0)
+    check(want["table_grad"] > 0, "mesh train step: no table_grad backward")
     check(counts == want, f"mesh train step: launches {counts}, "
           f"expected {want}")
     check(bool(torch.isfinite(loss)), f"mesh train step: loss {loss}")
@@ -2265,7 +2295,8 @@ def phase_gradients(dev, ch, wb, pk, mesh):
                       stats, fwd, bwd, tot, peak, counts, moved)
     rec.update(lane_budget=budget, stated_bytes_per_lane=sharding.lane_bytes(
         mcfg), card_total_MiB=total_bytes / 2 ** 20,
-        peak_reserved_MiB=reserved / 2 ** 20)
+        peak_reserved_MiB=reserved / 2 ** 20,
+        table_grad_library=recorded.counters.get("table_grad.library", 0))
     emit(rec)
     del mtarget, new, stats, mstep
     torch.cuda.empty_cache()
@@ -2373,6 +2404,9 @@ def phase_gradients(dev, ch, wb, pk, mesh):
     check(any(v[-1] < v[0] * 0.7 for v in tried.values()),
           f"optimisation: no lr cut the loss by 30% in 3 steps: {tried}")
 
+    # (g) the backward of the per-lane table gathers
+    table_record = phase_table_grad(dev, table_launches)
+
     # (f) the reference renderer's gradient goldens
     for name, make_scene, scale, rtol, sign in gradient_goldens(dev):
         reset_counts(ch, wb, pk)
@@ -2385,6 +2419,265 @@ def phase_gradients(dev, ch, wb, pk, mesh):
         check(sign == 0 or np.sign(ad) == sign, f"{name}: sign of {ad}")
         check(counts["closest_hit"] > 0 and counts["brute_any_hit"] > 0,
               f"{name}: the kernels did not launch {counts}")
+    return table_record
+
+
+# the kernel of csrc/table_grad.cu in torch.profiler's CUDA events
+TABLE_GRAD_KERNEL = "chain_kernel<"
+# one dependent float32 add: 4 cycles at the H100's 1.98 GHz boost clock
+ADD_LATENCY_S = 4 / 1.98e9
+
+
+def table_grad_set(rng, n, rows, cols, zero_share=0.0, one_row=None):
+    """(idx int32, g (n, cols) float32) of a synthetic set: rows drawn
+    uniformly (or every lane in row one_row), values over 40 binary orders
+    of magnitude so that another order of sums changes the bits, a share
+    of the lanes all +-0."""
+    idx = (np.full(n, one_row) if one_row is not None
+           else rng.integers(0, rows, n)).astype(np.int32)
+    g = (rng.standard_normal((n, cols)).astype(np.float32)
+         * np.exp2(rng.integers(-20, 20, (n, cols))).astype(np.float32))
+    zero = rng.random(n) < zero_share
+    g[zero] = np.where(rng.random((int(zero.sum()), 1)) < 0.5, 0.0, -0.0)
+    return torch.from_numpy(idx), torch.from_numpy(g)
+
+
+def table_grad_floors(idx, g, rows):
+    """The order-preserving chain's floor (the longest chain at one add
+    latency an element) and the bandwidth bound (indices and gradient read
+    once, the table written once), both in ms."""
+    cols = g.shape[1]
+    keep = ((g != 0).any(dim=1) if cols > 1
+            else torch.ones_like(idx, dtype=torch.bool))
+    per_row = torch.bincount(idx.long()[keep], minlength=rows)
+    longest = int(per_row.max()) if per_row.numel() else 0
+    # the stride-1 order: 32 strided chains, the 5 shuffles, the remainder
+    chain = longest if cols > 1 else longest // 32 + 5 + longest % 32
+    nbytes = idx.numel() * idx.element_size() + g.numel() * 4 + rows * cols * 4
+    return (chain * ADD_LATENCY_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3,
+            int(keep.sum()), longest)
+
+
+def table_grad_device_ms(fn, reps, flush, tries=3):
+    """Device milliseconds a call of the table-gather backward fn()
+    launches, from torch.profiler's CUDA events over reps calls (`flush`
+    overwritten before each, as in time_cuda): (the hand-written chain
+    kernel's, the partition's library kernels', i.e. the keys, the sort
+    and the gather).  The profiler may drop events: a profile that kept
+    fewer chain launches than calls is taken again, up to `tries` times,
+    then (None, None), reported apart, never filled in from another
+    clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count > 0]
+        chain = [(t, c) for k, t, c in rows if TABLE_GRAD_KERNEL in k]
+        if len(chain) == 1 and chain[0][1] == reps:
+            # flush.zero_() is the fill kernel; the wrapper launches none
+            library = sum(t for k, t, c in rows if TABLE_GRAD_KERNEL not in k
+                          and "FillFunctor" not in k)
+            return chain[0][0] / reps / 1e3, library / reps / 1e3
+    return None, None
+
+
+def compare_table_grad(name, idx, g, rows, flush, reps=5, library_reps=3):
+    """The kernel against table_grad_reference (PyTorch's index-put) on the
+    card, bit for bit, and their times."""
+    from gnxraytracer_tpu_torch.kernels import table_grad as tg
+
+    got = tg.table_grad(idx, g, rows)
+    want = tg.table_grad_reference(idx, g, rows)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    check(same, f"table_grad {name}: the kernel differs from index_put_ "
+          f"({int((got.view(torch.int32) != want.view(torch.int32)).sum())} "
+          f"of {got.numel()} entries)")
+    chain_ms, bytes_ms, kept, longest = table_grad_floors(idx, g, rows)
+    chain_kernel_ms, partition_ms = table_grad_device_ms(
+        lambda: tg.table_grad(idx, g, rows), reps, flush)
+    return {"set": name, "lanes": idx.numel(), "rows": rows,
+            "cols": g.shape[1], "lanes_kept": kept, "longest_chain": longest,
+            "bit_equal": same,
+            "device_ms": None if chain_kernel_ms is None
+            else chain_kernel_ms + partition_ms,
+            "chain_kernel_ms": chain_kernel_ms, "partition_ms": partition_ms,
+            "wrapper_ms": time_cuda(lambda: tg.table_grad(idx, g, rows), reps,
+                                    flush),
+            "library_ms": time_cuda(
+                lambda: tg.table_grad_reference(idx, g, rows), library_reps,
+                flush),
+            "chain_floor_ms": chain_ms, "bandwidth_bound_ms": bytes_ms}
+
+
+def phase_table_grad(dev, launches):
+    """Phase 10 (g): csrc/table_grad.cu, the backward of the per-lane
+    gathers of small parameter tables, against PyTorch's index-put on the
+    card: on every gather of one Cornell train step (captured) and on
+    synthetic sets; the Cornell step's gradients through the kernel against
+    those through PyTorch's backward; the counters of one recorded step
+    against the launches the wrapper counted.  Returns the kernels line's
+    record, with `launches` (those of phase 10 (a)'s Cornell steps)."""
+    from gnxraytracer_tpu_torch.kernels import table_grad as tg
+    from gnxraytracer_tpu_torch.models.integrators import path
+    from gnxraytracer_tpu_torch.ops import samplers
+    from gnxraytracer_tpu_torch.ops import table as table_ops
+    from gnxraytracer_tpu_torch.parallel import sharding
+    from gnxraytracer_tpu_torch.scene import presets
+    from gnxraytracer_tpu_torch.utils import stats as stats_mod
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    scene, cam = presets.cornell_box(WIDTH, HEIGHT, device=dev)
+    cfg = path.make_config(scene, WIDTH, HEIGHT, spp=GRAD_SPP_CHUNK,
+                           max_depth=GRAD_DEPTH, spp_chunk=GRAD_SPP_CHUNK,
+                           use_pallas=True)
+    smp = samplers.make_halton_sampler(GRAD_SPP_CHUNK, WIDTH, HEIGHT,
+                                       device=dev)
+    with torch.no_grad():
+        target = path.render(scene, cam, smp, cfg)
+    full = sharding.extract_params(scene)
+    params = {"kd": full["kd"] * 0.8, "light_emit": full["light_emit"]}
+    step = sharding.make_train_step(cfg)
+
+    def run_step():
+        st = {}
+        loss, _ = step(params, scene, cam, smp, target, lr=1.0, stats=st)
+        torch.cuda.synchronize()
+        return loss, st
+
+    # the Cornell step's own gathers, captured at the kernel's wrapper
+    captured, wrapper = [], tg.table_grad
+
+    def capture(idx, g, rows):
+        captured.append((idx.clone(), g.clone(), rows))
+        return wrapper(idx, g, rows)
+
+    tg.table_grad = capture
+    try:
+        run_step()
+    finally:
+        tg.table_grad = wrapper
+    check(captured, "table_grad: the Cornell step took no kernel backward")
+    recs = [compare_table_grad(f"cornell step call {i}", idx, g, rows, flush,
+                               reps=3, library_reps=1)
+            for i, (idx, g, rows) in enumerate(captured)]
+    # device sums over the calls the profiler saw whole; the others apart
+    seen = [r for r in recs if r["device_ms"] is not None]
+    step_rec = {
+        "phase": "gradients", "what": "table_grad on the Cornell train "
+        "step's own gathers (500x500, 4 spp, depth 8, kd and light_emit)",
+        "calls": len(recs), "bit_equal": all(r["bit_equal"] for r in recs),
+        "calls_profiled": len(seen),
+        "device_ms_sum": sum(r["device_ms"] for r in seen),
+        "chain_kernel_ms_sum": sum(r["chain_kernel_ms"] for r in seen),
+        "partition_ms_sum": sum(r["partition_ms"] for r in seen),
+        "calls_not_profiled": [r["set"] for r in recs
+                               if r["device_ms"] is None],
+        "wrapper_ms_sum": sum(r["wrapper_ms"] for r in recs),
+        "library_ms_sum": sum(r["library_ms"] for r in recs),
+        "chain_floor_ms_sum": sum(r["chain_floor_ms"] for r in recs),
+        "bandwidth_bound_ms_sum": sum(r["bandwidth_bound_ms"] for r in recs),
+        "each": recs}
+    emit(step_rec)
+    del captured
+
+    # synthetic sets, 1M lanes
+    rng = np.random.default_rng(15)
+    n = 1 << 20
+    sets = [("1M lanes in one row", 5, 3, dict(one_row=2)),
+            ("1,024 rows, uniform", tg.MAX_ROWS, 3, {}),
+            ("all zeros", 5, 3, dict(zero_share=1.0)),
+            ("5 rows, 40% zeros", 5, 3, dict(zero_share=0.4)),
+            ("5 rows, 40% zeros, one column", 5, 1, dict(zero_share=0.4)),
+            ("1,024 rows, uniform, one column", tg.MAX_ROWS, 1, {}),
+            ("1M lanes in one row, one column", 5, 1, dict(one_row=2))]
+    recs = []
+    for name, rows, cols, kw in sets:
+        idx, g = table_grad_set(rng, n, rows, cols, **kw)
+        recs.append(compare_table_grad(name, idx.to(dev), g.to(dev), rows,
+                                       flush))
+    emit({"phase": "gradients", "what": "table_grad on synthetic sets",
+          "sets": recs})
+
+    # the step through the kernel against the step through PyTorch's
+    # backward (twice, to show the library's own step repeats)
+    loss_k, st_k = run_step()
+    on_card = table_ops._on_card
+    table_ops._on_card = lambda table: False
+    try:
+        loss_l, st_l = run_step()
+        loss_l2, st_l2 = run_step()
+    finally:
+        table_ops._on_card = on_card
+
+    def same_bits(a, b):
+        return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+                   for k in a)
+
+    library_repeats = same_bits(st_l["grads"], st_l2["grads"])
+    equal = same_bits(st_k["grads"], st_l["grads"]) and bool(loss_k == loss_l)
+    # one recorded step: the route's counters against the launches the
+    # wrapper counted where it launched
+    tg.reset_launch_count()
+    with stats_mod.recording() as rec:
+        _, st_r = run_step()
+    step_launches = tg.launch_count
+    counters = {k: v for k, v in rec.counters.items()
+                if k.startswith("table_grad.")}
+    want = CORNELL_TABLE_GATHERS * (GRAD_DEPTH + 1) * st_r["passes"]
+    emit({"phase": "gradients", "what": "Cornell train step: gradients "
+          "through table_grad against PyTorch's index-put backward",
+          "grads_bit_equal": equal, "library_repeats_itself": library_repeats,
+          "backward_ms_kernel": st_k["backward_ms"],
+          "backward_ms_library": st_l["backward_ms"],
+          "forward_ms_kernel": st_k["forward_ms"],
+          "counters_of_one_recorded_step": counters,
+          "launches_of_that_step": step_launches, "launches_expected": want})
+    check(library_repeats and equal, "Cornell train step: the gradients "
+          "through table_grad differ from PyTorch's backward")
+    check(step_launches == want
+          and counters.get("table_grad.kernel", 0) == step_launches
+          and counters.get("table_grad.library", 0) == 0,
+          f"Cornell train step: table_grad launched {step_launches} times "
+          f"(expected {want}), counters {counters}")
+    del flush, target
+    torch.cuda.empty_cache()
+
+    # the kernels line's record: one Cornell step's calls
+    return dict(
+        name="table_grad", route="cuda",
+        source="gnxraytracer_tpu_torch/csrc/table_grad.cu",
+        replaces=None,
+        replaces_note="no TPU counterpart: the gather's transpose is XLA's; "
+        "it replaces PyTorch's index-put backward on the card",
+        launches=launches, max_abs_err=0.0,
+        ms=step_rec["device_ms_sum"] if not step_rec["calls_not_profiled"]
+        else None,
+        ms_source="torch.profiler device time of the chain kernel and the "
+        "partition's keys, sort and gather, summed over one Cornell "
+        "step's calls",
+        calls_not_profiled=step_rec["calls_not_profiled"],
+        chain_kernel_ms=step_rec["chain_kernel_ms_sum"],
+        partition_ms=step_rec["partition_ms_sum"],
+        wrapper_ms=step_rec["wrapper_ms_sum"],
+        plain_ms=step_rec["library_ms_sum"],
+        library_ms=step_rec["library_ms_sum"],
+        bound_ms=step_rec["chain_floor_ms_sum"],
+        bound_by="the order-preserving chain (longest row, one add latency "
+        "an element)",
+        bytes_ms=step_rec["bandwidth_bound_ms_sum"],
+        shape={"calls_a_step": step_rec["calls"], "lanes": WIDTH * HEIGHT
+               * GRAD_SPP_CHUNK})
 
 
 # the JAX package's own AD of each gradient golden (tests/golden/
@@ -3116,7 +3409,8 @@ def phase_scene_features(dev, ch, wb, pk):
 BENCH_SPP = {"cornell": 16, "whitted": 16, "mesh": 8}
 # all_counts' key of each record of the kernels line, in its order
 KERNEL_KEYS = ("closest_hit", "brute_any_hit", "wide_closest_hit",
-               "wide_any_hit", "packet_closest_hit", "packet_any_hit")
+               "wide_any_hit", "packet_closest_hit", "packet_any_hit",
+               "table_grad")
 RANKS = 2
 RANK_TIMEOUT_S = 240
 IMAGE_ATOL = 1e-5        # ranks against one process (JAX test_multihost.py)
@@ -3322,7 +3616,8 @@ def phase_entry_points(dev, ch, wb, pk):
                                                 target, lr=1.0)
     one_step = all_counts(ch, wb, pk)
     w = expect_counts(closest_hit=2 * (GRAD_DEPTH + 1),
-                      brute_any_hit=GRAD_DEPTH + 1)
+                      brute_any_hit=GRAD_DEPTH + 1,
+                      table_grad=CORNELL_TABLE_GATHERS * (GRAD_DEPTH + 1))
     check(one_step == w, f"one-rank step: launches {one_step}, expected {w}")
     for r in records:
         check(r["launches"] == w, f"train rank {r['rank']}: launches "
@@ -3742,7 +4037,10 @@ def main():
                 phase_profile(dev, mesh)
         phase_golden(dev)
         phase_goldens_halton(dev)
-        phase_gradients(dev, ch, wb, pk, mesh)
+        table_record = phase_gradients(dev, ch, wb, pk, mesh)
+        check(table_record["launches"] > 0,
+              "the Cornell train step never launched the kernel table_grad")
+        records.append(table_record)
         phase_volpath(dev, ch, wb, pk)
         # the launches of phase 12's instanced paths join those of the main
         # paths that launched each kernel before (phases 4 and 7)

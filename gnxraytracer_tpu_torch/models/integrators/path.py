@@ -38,6 +38,7 @@ import torch
 from ...constants import INFINITY
 from ...ops import samplers, trace
 from ...ops.sampling import power_heuristic
+from ...ops.table import gather_rows
 from ...scene import camera as cam_mod
 from ...utils.math import absdot, cross, dot, normalize
 from ...utils.stats import count, span, spanned
@@ -207,7 +208,7 @@ def _choose_light(scene, cfg, u, p=None):
         idx = torch.clamp(
             torch.sum((cdf <= u[:, None]).to(torch.int32), dim=1) - 1,
             0, nl - 1)
-        return idx.to(torch.int32), pmf[idx.long()]
+        return idx.to(torch.int32), gather_rows(pmf, idx)
     idx = torch.clamp((u * nl).to(torch.int32), max=nl - 1)
     pdf = torch.full(u.shape, 1.0 / nl, dtype=torch.float32, device=u.device)
     return idx, pdf

@@ -24,6 +24,7 @@ import torch
 from ...constants import INFINITY
 from ...ops import rng, samplers, trace
 from ...ops.sampling import power_heuristic
+from ...ops.table import gather_rows
 from ...scene import camera as cam_mod
 from ...utils.math import cross, dot, normalize
 from .. import lights as lights_mod
@@ -170,7 +171,8 @@ def _bounce(scene, cfg, b, state, U, lane_key):
     # ---- medium vertex: NEE + phase sampling --------------------------------
     if cfg.has_media:
         p_med = state["o"] + ms.t[:, None] * state["d"]
-        g_hg = scene.media.g[torch.clamp(state["medium"], min=0).long()]
+        g_hg = gather_rows(scene.media.g,
+                           torch.clamp(state["medium"], min=0))
         wo = -state["d"]
         ld_med = _medium_nee(scene, cfg, p_med, wo, g_hg, state["medium"],
                              u_sel, u_light, u_scat, lane_key, b,

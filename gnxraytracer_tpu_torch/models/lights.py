@@ -19,6 +19,7 @@ from ..constants import INV_2PI, INV_PI, PI
 from ..ops.sampling import (
     Distribution2D, pdf_2d, sample_continuous_2d_idx, uniform_sample_triangle,
 )
+from ..ops.table import gather_rows
 from ..scene.scene import (
     LIGHT_AREA, LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_POINT, LIGHT_SKYBOX,
     LIGHT_SPOT, Scene,
@@ -60,7 +61,8 @@ def light_rows(scene: Scene, light_idx) -> LightRow:
     has_tri = (tri_id >= 0)[:, None].to(torch.float32)
     tv = g.triangles[torch.clamp(tri_id, min=0).long()].long()
     return LightRow(
-        kind=L.kind[li], pos=L.pos[li], emit=L.emit[li], axis=L.axis[li],
+        kind=L.kind[li], pos=L.pos[li], emit=gather_rows(L.emit, li),
+        axis=L.axis[li],
         two_sided=L.two_sided[li], cos_falloff=L.cos_falloff[li],
         cos_total=L.cos_total[li],
         p0=g.vertices[tv[:, 0]] * has_tri,
@@ -79,7 +81,7 @@ def area_light_emitted(scene: Scene, light_idx, n_light, w,
         lemit = row.emit
         two_sided = row.two_sided > 0.5
     else:
-        lemit = scene.lights.emit[light_idx.long()]
+        lemit = gather_rows(scene.lights.emit, light_idx)
         two_sided = scene.lights.two_sided[light_idx.long()] > 0.5
     d = dot(n_light, w)
     if reference_bug:

@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.table import gather_rows
 from ..scene.scene import (
     MAT_DISNEY, MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_PLASTIC,
     MaterialTable,
@@ -41,14 +42,14 @@ def _g(col, mid):
     pre-gathered to per-lane rows by gather_material_table."""
     if mid is None:
         return col
-    return col[mid.long()]
+    return gather_rows(col, mid)
 
 
 def gather_material_table(mats: MaterialTable, mid) -> MaterialTable:
     """Per-lane material rows: a MaterialTable whose columns are (N,)/(N,3);
     downstream code then indexes with mid=None."""
     idx = mid.long()
-    return MaterialTable(*(c[idx] for c in mats))
+    return MaterialTable(*(gather_rows(c, idx) for c in mats))
 
 
 def has_nonspecular(mats: MaterialTable, mid, cfg):

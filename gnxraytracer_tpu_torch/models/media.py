@@ -17,6 +17,7 @@ import torch
 
 from ..constants import INV_4PI, PI
 from ..ops import rng
+from ..ops.table import gather_rows
 from ..utils.math import coordinate_system, normalize
 
 MAX_TRACKING_STEPS = 256
@@ -133,8 +134,8 @@ def sample_medium(media, medium_id, o, d, t_surf, lane_key, bounce, seed):
     active = medium_id >= 0
     mid = torch.clamp(medium_id, min=0).long()
     kind = media.kind[mid]
-    sigma_a = media.sigma_a[mid]
-    sigma_s = media.sigma_s[mid]
+    sigma_a = gather_rows(media.sigma_a, mid)
+    sigma_s = gather_rows(media.sigma_s, mid)
     sigma_t = sigma_a + sigma_s
 
     sampled = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -207,7 +208,7 @@ def medium_tr(media, medium_id, o, d, t_max, lane_key, salt, seed):
     active = medium_id >= 0
     mid = torch.clamp(medium_id, min=0).long()
     kind = media.kind[mid]
-    sigma_t = media.sigma_a[mid] + media.sigma_s[mid]
+    sigma_t = gather_rows(media.sigma_a, mid) + gather_rows(media.sigma_s, mid)
     tr = torch.ones((n, 3), dtype=torch.float32, device=dev)
 
     hom = active & (kind == MEDIUM_HOMOGENEOUS)

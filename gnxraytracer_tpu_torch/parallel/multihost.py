@@ -202,22 +202,24 @@ def combine_slabs(slab, cfg):
 # ---------------------------------------------------------------------------
 
 def _launch_counts():
-    from ..kernels import closest_hit, packet_bvh, wide_bvh
+    from ..kernels import closest_hit, packet_bvh, table_grad, wide_bvh
 
     return {"closest_hit": closest_hit.launch_count,
             "brute_any_hit": closest_hit.any_launch_count,
             "wide_closest_hit": wide_bvh.closest_launch_count,
             "wide_any_hit": wide_bvh.any_launch_count,
             "packet_closest_hit": packet_bvh.closest_launch_count,
-            "packet_any_hit": packet_bvh.any_launch_count}
+            "packet_any_hit": packet_bvh.any_launch_count,
+            "table_grad": table_grad.launch_count}
 
 
 def _reset_launch_counts():
-    from ..kernels import closest_hit, packet_bvh, wide_bvh
+    from ..kernels import closest_hit, packet_bvh, table_grad, wide_bvh
 
     closest_hit.reset_launch_count()
     wide_bvh.reset_launch_counts()
     packet_bvh.reset_launch_counts()
+    table_grad.reset_launch_count()
 
 
 def setup(args, device):
