@@ -73,7 +73,9 @@ def setup_port(ctx):
 
 def run(ctx):
     t, dev = ctx.traffic, ctx.device
+    t_runner = time.perf_counter()
     p = setup_port(ctx)
+    t_built = time.perf_counter()
     scene, camera, step, smp = p.scene, p.camera, p.step, p.smp
     target, lr = p.target, t["lr"]
     width, height = camera.width, camera.height
@@ -91,11 +93,19 @@ def run(ctx):
 
     # set-up: the first steps, recorded for the check (the first one warms
     # up every shape of the step)
+    checked_s = []
     for _ in range(t["checked_steps"]):
+        t0 = time.perf_counter()
         losses.append(float(one_step()))
+        checked_s.append(time.perf_counter() - t0)
         history.append(state["params"])
     tracing.sync(dev)
     setup_s = time.perf_counter() - ctx.t_start
+    # where set-up went: process start to the runner (interpreter, imports,
+    # torch), the scene, the CUDA context and the step, each checked step
+    print(f"perfbench: set-up parts {t_runner - ctx.t_start:.3f} s to the "
+          f"runner, {t_built - t_runner:.3f} s scene and step, checked steps "
+          f"{[round(c, 3) for c in checked_s]} s", file=sys.stderr, flush=True)
 
     walls, backward_ms = [], []
     # every window step's loss and the parameters before and after it (a

@@ -122,7 +122,7 @@ def test_a_new_metric_is_found_by_name(tmp_path, manifest):
              harness.cell_metrics(m, "cornell-path", "per_layer")]
     assert "rays_per_path.render" in names
     assert "rays_per_path.render" not in [
-        e["name"] for e in harness.cell_metrics(m, "cornell-train",
+        e["name"] for e in harness.cell_metrics(m, "cornell-train-16spp",
                                                 "per_layer")]
     mod = harness.load_module("metrics", "rays_per_path.render", here=str(here))
     assert mod.read({"rays_per_path": 5.5}) == 5.5

@@ -104,6 +104,17 @@ def test_launches_a_pass():
     assert layer("launches_per_pass.render").read(tr) == 10_000
 
 
+def test_launches_a_step():
+    tr = {"kind": "train", "kernels": 32_000, "units": 2}
+    assert layer("launches_per_step.train").read(tr) == 16_000
+    # a render's trace, or none, gives nothing to read
+    assert layer("launches_per_step.train").read(dict(tr, kind="render")) is None
+    assert layer("launches_per_step.train").read(None) is None
+    # no kernel seen (a trace of the CPU): nothing, never a 0
+    assert layer("launches_per_step.train").read(dict(tr, kernels=0)) is None
+    assert layer("launches_per_pass.render").read(tr) is None
+
+
 def test_cast_bytes_closest_and_any_hit(monkeypatch):
     from gnxraytracer_tpu_torch.ops import trace
 

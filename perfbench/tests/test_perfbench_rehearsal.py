@@ -21,6 +21,7 @@ from perfbench import control, harness
 ROOT = harness.ROOT
 SMALL = {"width": 32, "height": 32, "n_seg": 12}
 RENDER_CELLS = ["cornell-path", "envmesh-path"]
+TRAIN_CELL = "cornell-train-16spp"
 
 
 @pytest.fixture(autouse=True)
@@ -36,7 +37,7 @@ def rehearse(workload, seed=20260917, seconds=0.3):
                             0, "cpu", time.perf_counter(), overrides=SMALL)
 
 
-@pytest.mark.parametrize("workload", RENDER_CELLS + ["cornell-train"])
+@pytest.mark.parametrize("workload", RENDER_CELLS + [TRAIN_CELL])
 def test_a_cell_rehearsed_on_the_cpu(workload):
     out = rehearse(workload)
     assert out["correct"] is True and out["failed"] == 0
@@ -94,9 +95,9 @@ def test_the_control_fails_a_render_cell(workload):
 
 
 def test_the_control_fails_the_train_cell():
-    rows = control.readings("cornell-train", [11], "cpu", program=True,
+    rows = control.readings(TRAIN_CELL, [11], "cpu", program=True,
                             overrides={"width": 24, "height": 24})
-    limits = harness.load_json("limits", "cornell-train")
+    limits = harness.load_json("limits", TRAIN_CELL)
     for r in rows:
         assert any(r["control"][k] > limits[k] for k in limits), r
         assert all(r["port"][k] <= limits[k] for k in limits), r
@@ -155,7 +156,7 @@ def test_a_broken_train_step_is_not_correct(monkeypatch, fault):
                 return loss * (1.0 + 1e-3), new
             return step
         monkeypatch.setattr(sharding, "make_train_step", make_train_step)
-    out = harness.run_cell(harness.load_manifest(), "cornell-train", 7, 0.3,
+    out = harness.run_cell(harness.load_manifest(), TRAIN_CELL, 7, 0.3,
                            0, "cpu", time.perf_counter(),
                            overrides={"width": 24, "height": 24})
     assert out["correct"] is False
@@ -168,7 +169,9 @@ def test_a_train_step_broken_after_set_up_is_not_correct(monkeypatch, fault):
     something else later) is caught by the window's step."""
     from gnxraytracer_tpu_torch.parallel import sharding
 
-    checked = harness.load_json("traffic", "train_halton_4spp")["checked_steps"]
+    cell = next(w for w in harness.load_manifest()["workloads"]
+                if w["name"] == TRAIN_CELL)
+    checked = harness.load_json("traffic", cell["traffic"])["checked_steps"]
     orig_make = sharding.make_train_step
 
     def make_train_step(cfg, **kw):
@@ -185,7 +188,7 @@ def test_a_train_step_broken_after_set_up_is_not_correct(monkeypatch, fault):
         return step
 
     monkeypatch.setattr(sharding, "make_train_step", make_train_step)
-    out = harness.run_cell(harness.load_manifest(), "cornell-train", 7, 0.3,
+    out = harness.run_cell(harness.load_manifest(), TRAIN_CELL, 7, 0.3,
                            0, "cpu", time.perf_counter(),
                            overrides={"width": 24, "height": 24})
     assert out["correct"] is False
